@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py [--seed 0]
 
-It builds the CUDA kernels from csrc/ and goes through four phases, each
+It builds the CUDA kernels from csrc/ and goes through seven phases, each
 printing its own lines; any failure raises, so the exit code is non-zero
 and no result line is printed.
 
@@ -22,7 +22,24 @@ and no result line is printed.
       OutputStore; wall time, pairs, cells and GCUPS; 32 sampled pairs
       against the oracle and 4096 against the plain version on the card;
       both kernels' launch counts, which are zeroed just before this run.
-      Then the same at bench.py's shape (1024 proteins, lengths 24-64).
+      Then the same at bench.py's shape (1024 proteins, lengths 24-64);
+  (e) the superblock entry points: the grid kernel and the inline mode
+      against the grid kernel's plain version for NW/GA/SW at (Lc, Lk) =
+      (21, 13), (80, 70) and (70, 40) with S = 3; then align_superblock at
+      full size (GA, 256 x 256, S = pick_S = 256: 32,768 pairs on a 2 GiB
+      int8 grid) in grid and inline mode, its launch counts zeroed just
+      before, both results against plain, with CUDA-event times of
+      build_stream, the grid kernel and plain; then tools/fuzz_hw with 8
+      trials;
+  (f) the linear-v1 schedule (SEQALIGN_TPU_OUTER=0) on (d)'s 4096-protein
+      set: the matrix must equal (d)'s tiles-v2 matrix, with no tile launch
+      and some per-pair launches; wall time, pairs, cells and GCUPS;
+  (g) long and wide inputs through the linear-v1 route: 128 DNA sequences
+      of 3,000-9,000 nt (NUC44, SW 10/1; buckets beyond W_MAX), 64 sampled
+      pairs against plain, plus align() and the CLI on three sequences over
+      4096 nt; and 512 proteins (lengths 50-500) under BLOSUM62 x 20 (GA
+      10/1, |score| up to 220), 256 sampled pairs against plain; GCUPS of
+      both.
 
 The second-to-last lines are the kernels' JSON record and the card's
 nvidia-smi line; the last line is the JSON result.  It needs no network and
@@ -33,8 +50,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,6 +65,7 @@ SOURCE = "sequencealigner_tpu_torch/csrc/align_dp.cu"
 REPLACES = {
     "align_tiles": "sequencealigner_tpu/ops/pallas_dp.py:791",
     "align_pairs": "sequencealigner_tpu/ops/pallas_dp.py:724",
+    "align_grid": "sequencealigner_tpu/ops/pallas_dp.py:681",
 }
 ALGO_GAPS = [("nw", (-4, 0, 0)), ("ga", (0, -10, -1)), ("sw", (0, -10, -1))]
 RESIDUES = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
@@ -61,20 +81,6 @@ def smi() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call on the card (one warm-up call first)."""
-    fn()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def bucket(rng, count, edge):
@@ -94,6 +100,7 @@ def phase_b(rng, dev, M):
     from sequencealigner_tpu_torch import engine
     from sequencealigner_tpu_torch.ops import cuda_dp, geometry, torch_dp
     from sequencealigner_tpu_torch.scheduler import TRI_W
+    from sequencealigner_tpu_torch.tools.profile_kernels import cuda_ms
 
     shapes = [("single-band 64", 64, 64), ("multi-band 160", 160, 160),
               ("cross 256x96", 256, 96), ("diag-tail 128", 128, 128)]
@@ -174,58 +181,274 @@ def phase_c(dev, M):
     log("(c) seqalign-torch -i examples/peptides.fasta -a ga -W -F: rc 0")
 
 
-def phase_d(rng, dev, M, n, lo, hi, card, label, oracle_pairs):
-    """The main path once at n sequences; returns (stats, launches)."""
+def proteins(rng, n, lo, hi):
+    return [rng.choice(RESIDUES, int(rng.integers(lo, hi + 1)))
+            for _ in range(n)]
+
+
+def zero_launches() -> None:
+    from sequencealigner_tpu_torch.ops import cuda_dp
+
+    for k in (cuda_dp.align_tiles, cuda_dp.align_pairs, cuda_dp.align_grid):
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    from sequencealigner_tpu_torch.ops import cuda_dp
+
+    return {k.__name__: k.launches for k in (
+        cuda_dp.align_tiles, cuda_dp.align_pairs, cuda_dp.align_grid)}
+
+
+def plain_sample(rng, dev, raw, lut, sub, gaps, algo, mat, k, label):
+    """k sampled pairs of a finished matrix against the per-pair kernel's
+    plain version on the card."""
+    from sequencealigner_tpu_torch.ops import torch_dp
+
+    n = len(raw)
+    i = rng.integers(0, n, k)
+    j = (i + rng.integers(1, n, k)) % n
+    L = max(len(s) for s in raw)
+    codes = np.full((n, L), 24, np.int8)
+    for r, s in enumerate(raw):
+        codes[r, : len(s)] = lut[s]
+    lens = torch.tensor([len(s) for s in raw], dtype=torch.int32, device=dev)
+    ct = torch.from_numpy(codes).to(dev)
+    it = torch.from_numpy(i.astype(np.int32)).to(dev)
+    jt = torch.from_numpy(j.astype(np.int32)).to(dev)
+    plain = torch_dp.align_pairs_plain(ct, ct, it, jt, lens, lens, sub, gaps,
+                                       algo=algo).cpu().numpy()
+    if (plain != mat[i, j]).any():
+        raise AssertionError(f"{label}: sampled pairs != plain version")
+    return i, j
+
+
+def phase_d(rng, dev, M, raw, card, label, oracle_pairs):
+    """The main path once on ``raw``; returns (stats, launches, matrix)."""
     from sequencealigner_tpu_torch import engine
     from sequencealigner_tpu_torch.io.input import SequenceSet
     from sequencealigner_tpu_torch.io.output import OutputStore
-    from sequencealigner_tpu_torch.ops import cuda_dp, oracle, torch_dp
+    from sequencealigner_tpu_torch.ops import oracle
 
-    raw = [rng.choice(RESIDUES, int(rng.integers(lo, hi + 1)))
-           for _ in range(n)]
+    n = len(raw)
+    lo, hi = min(map(len, raw)), max(map(len, raw))
     ss = SequenceSet.from_list(raw, M.lut)
     gaps = (0, -10, -1)
     eng = engine.Engine("ga", M.matrix, gaps, device=dev)
     store = OutputStore(n, triangular=False, spill=False)
-    cuda_dp.align_tiles.launches = 0
-    cuda_dp.align_pairs.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     stats = eng.align_all(ss, store, progress=False)
     wall = time.perf_counter() - t0
-    launches = {"align_tiles": cuda_dp.align_tiles.launches,
-                "align_pairs": cuda_dp.align_pairs.launches}
+    launches = read_launches()
     log(f"(d) {label}: {n} seqs, lengths {lo}-{hi}, GA BLOSUM62 10/1 on "
         f"{card}: wall {wall:.3f} s, align {stats.seconds:.3f} s, "
         f"{stats.pairs} pairs, {stats.cells} cells, "
         f"{stats.gcups:.2f} GCUPS, launches {launches}")
-    if stats.pairs != n * (n - 1) // 2 or min(launches.values()) == 0:
+    if (stats.pairs != n * (n - 1) // 2 or not launches["align_tiles"]
+            or not launches["align_pairs"]):
         raise AssertionError(f"(d) {label}: pairs or launches wrong")
     mat = np.asarray(store.matrix).reshape(n, n)
     if (np.diag(mat) != 0).any() or not (mat == mat.T).all():
         raise AssertionError(f"(d) {label}: matrix not symmetric/zero diag")
-    enc = [M.lut[s] for s in raw]
-    i = rng.integers(0, n, 4096)
-    j = (i + rng.integers(1, n, 4096)) % n
+    sub, g = engine.from_reference_inputs(M.matrix, gaps, dev)
+    i, j = plain_sample(rng, dev, raw, M.lut, sub, g, "ga", mat, 4096,
+                        f"(d) {label}")
     for p in range(oracle_pairs):
-        want = oracle.ga_affine(enc[i[p]], enc[j[p]], M.matrix, -10, -1)
+        want = oracle.ga_affine(M.lut[raw[i[p]]], M.lut[raw[j[p]]], M.matrix,
+                                -10, -1)
         if mat[i[p], j[p]] != want:
             raise AssertionError(f"(d) {label}: pair {i[p]},{j[p]} != oracle")
-    L = max(len(s) for s in raw)
-    codes = np.full((n, L), 24, np.int8)
-    for r, e in enumerate(enc):
-        codes[r, : len(e)] = e
-    lens = torch.from_numpy(ss.lengths).to(dev)
-    ct = torch.from_numpy(codes).to(dev)
-    sub, g = engine.from_reference_inputs(M.matrix, gaps, dev)
-    it = torch.from_numpy(i.astype(np.int32)).to(dev)
-    jt = torch.from_numpy(j.astype(np.int32)).to(dev)
-    plain = torch_dp.align_pairs_plain(ct, ct, it, jt, lens, lens, sub, g,
-                                       algo="ga").cpu().numpy()
-    if (plain != mat[i, j]).any():
-        raise AssertionError(f"(d) {label}: sampled pairs != plain version")
     log(f"(d) {label}: {oracle_pairs} sampled pairs == oracle, 4096 sampled "
         "pairs == plain version on the card")
-    return stats, launches
+    return stats, launches, mat
+
+
+def grid_block(rng, dev, n, Lc, Lk):
+    """n random pairs (codes PAD beyond random lengths 1..L) on the card."""
+    from sequencealigner_tpu_torch.ops.geometry import PAD
+
+    out = []
+    for L in (Lc, Lk):
+        lens = rng.integers(1, L + 1, n).astype(np.int32)
+        codes = rng.integers(0, 20, (n, L)).astype(np.int8)
+        codes[np.arange(L)[None, :] >= lens[:, None]] = PAD
+        out.append((torch.from_numpy(codes).to(dev),
+                    torch.from_numpy(lens).to(dev)))
+    (s1, l1), (s2, l2) = out
+    return s1, s2, l1, l2
+
+
+def phase_e(rng, dev, M, card, seed):
+    """The superblock entry points; returns (max error, (ms, plain ms) at
+    GA 80 x 70, the full-size run's launches)."""
+    from sequencealigner_tpu_torch import engine
+    from sequencealigner_tpu_torch.ops import cuda_dp, geometry, superblock
+    from sequencealigner_tpu_torch.ops import torch_dp
+    from sequencealigner_tpu_torch.tools import fuzz_hw
+    from sequencealigner_tpu_torch.tools.profile_kernels import cuda_ms
+
+    B = geometry.LANE
+    err, times = 0, None
+    for Lc, Lk, S in ((21, 13, 1), (80, 70, 1), (70, 40, 3)):
+        s1, s2, l1, l2 = grid_block(rng, dev, S * B, Lc, Lk)
+        nb, Kpad, CD, W = geometry.geometry(Lc, Lk, B)
+        for algo, gaps in ALGO_GAPS:
+            sub, g = engine.from_reference_inputs(M.matrix, gaps, dev)
+            sk = superblock.build_stream(s1, s2, sub, S=S, B=B, Lc=Lc, Lk=Lk,
+                                         Kpad=Kpad, W=W)
+            got = cuda_dp.align_grid(sk, l1, l2, g, algo=algo)
+            torch.cuda.synchronize()
+            want = torch_dp.align_grid_plain(sk, l1, l2, g, algo=algo)
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            inline = superblock.align_superblock(
+                s1, s2, l1, l2, sub, g, algo=algo, Lc=Lc, Lk=Lk, B=B,
+                inline=True)
+            if not torch.equal(got, want) or not torch.equal(inline, want):
+                raise AssertionError(f"(e) align_grid {algo} {Lc}x{Lk}")
+            if algo == "ga" and (Lc, Lk) == (80, 70):
+                times = (
+                    cuda_ms(lambda: cuda_dp.align_grid(sk, l1, l2, g,
+                                                       algo="ga"), 10),
+                    cuda_ms(lambda: torch_dp.align_grid_plain(
+                        sk, l1, l2, g, algo="ga"), 2),
+                )
+                log(f"(e) align_grid 80x70 GA kernel {times[0]:.4f} ms  "
+                    f"plain {times[1]:.4f} ms")
+        log(f"(e) align_grid and inline align_superblock {Lc}x{Lk} S={S}: "
+            "NW/GA/SW == plain (exact)")
+    Lc = Lk = 256
+    nb, Kpad, CD, W = geometry.geometry(Lc, Lk, B)
+    S = geometry.pick_S(B, Kpad, W)
+    s1, s2, l1, l2 = grid_block(rng, dev, S * B, Lc, Lk)
+    sub, g = engine.from_reference_inputs(M.matrix, (0, -10, -1), dev)
+    kw = dict(algo="ga", Lc=Lc, Lk=Lk, B=B)
+    zero_launches()
+    grid = superblock.align_superblock(s1, s2, l1, l2, sub, g, **kw)
+    inline = superblock.align_superblock(s1, s2, l1, l2, sub, g, inline=True,
+                                         **kw)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != {"align_tiles": 0, "align_pairs": 1, "align_grid": 1}:
+        raise AssertionError(f"(e) full size launches {launches}")
+    sk = superblock.build_stream(s1, s2, sub, S=S, B=B, Lc=Lc, Lk=Lk,
+                                 Kpad=Kpad, W=W)
+    want = torch_dp.align_grid_plain(sk, l1, l2, g, algo="ga")
+    err = max(err, int((grid.long() - want.long()).abs().max()))
+    for name, got in (("grid", grid), ("inline", inline)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"(e) full size {name} != plain")
+    t_build = cuda_ms(lambda: superblock.build_stream(
+        s1, s2, sub, S=S, B=B, Lc=Lc, Lk=Lk, Kpad=Kpad, W=W), 3)
+    t_grid = cuda_ms(lambda: cuda_dp.align_grid(sk, l1, l2, g, algo="ga"), 5)
+    t_inline = cuda_ms(lambda: superblock.align_superblock(
+        s1, s2, l1, l2, sub, g, inline=True, **kw), 5)
+    t_plain = cuda_ms(lambda: torch_dp.align_grid_plain(sk, l1, l2, g,
+                                                        algo="ga"), 1)
+    cells = int((l1.long() * l2.long()).sum())
+    log(f"(e) align_superblock GA 256x256 S={S} ({S * B} pairs, "
+        f"{sk.numel() / 2**30:.2f} GiB grid) on {card}: grid and inline == "
+        f"plain (exact); build_stream {t_build:.4f} ms, align_grid "
+        f"{t_grid:.4f} ms ({cells / t_grid / 1e6:.1f} GCUPS true, "
+        f"{sk.numel() / t_grid / 1e6:.1f} Gcell/s padded), inline "
+        f"{t_inline:.4f} ms, plain {t_plain:.4f} ms; launches {launches}")
+    del sk, grid, inline, want
+    fuzz_hw.run(seed, 8, log=lambda m: log(f"(e) fuzz_hw {m}"))
+    return err, times, launches
+
+
+def linear_engine(algo, sub, gaps, dev):
+    """An Engine built under SEQALIGN_TPU_OUTER=0 (read at construction)."""
+    from sequencealigner_tpu_torch import engine
+
+    old = os.environ.get("SEQALIGN_TPU_OUTER")
+    os.environ["SEQALIGN_TPU_OUTER"] = "0"
+    try:
+        return engine.Engine(algo, sub, gaps, device=dev)
+    finally:
+        if old is None:
+            del os.environ["SEQALIGN_TPU_OUTER"]
+        else:
+            os.environ["SEQALIGN_TPU_OUTER"] = old
+
+
+def run_set(eng, raw, lut, label, card):
+    """One full run into a square store; returns (stats, launches, matrix)."""
+    from sequencealigner_tpu_torch.io.input import SequenceSet
+    from sequencealigner_tpu_torch.io.output import OutputStore
+
+    n = len(raw)
+    ss = SequenceSet.from_list(raw, lut)
+    token = eng.schedule_token(ss.lengths)
+    store = OutputStore(n, triangular=False, spill=False)
+    zero_launches()
+    t0 = time.perf_counter()
+    stats = eng.align_all(ss, store, progress=False)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"{label} on {card}: {n} seqs, token {token}, wall {wall:.3f} s, "
+        f"align {stats.seconds:.3f} s, {stats.pairs} pairs, {stats.cells} "
+        f"cells, {stats.gcups:.2f} GCUPS, launches {launches}")
+    if (not token.startswith("linear-v1") or stats.pairs != n * (n - 1) // 2
+            or launches["align_tiles"] or not launches["align_pairs"]):
+        raise AssertionError(f"{label}: token, pairs or launches wrong")
+    return stats, launches, np.asarray(store.matrix).reshape(n, n)
+
+
+def phase_f(dev, M, raw, tiles_mat, card):
+    eng = linear_engine("ga", M.matrix, (0, -10, -1), dev)
+    _, _, mat = run_set(eng, raw, M.lut, "(f) linear-v1 main", card)
+    if not np.array_equal(mat, tiles_mat):
+        raise AssertionError("(f) linear-v1 matrix != tiles-v2 matrix")
+    log("(f) linear-v1 matrix == tiles-v2 matrix, element for element")
+
+
+def phase_g(rng, dev, card):
+    from sequencealigner_tpu_torch import align, engine, matrices
+    from sequencealigner_tpu_torch.ops import geometry, torch_dp
+
+    nuc = matrices.get("nuc44")
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    dna = [rng.choice(acgt, int(rng.integers(3000, 9001))) for _ in range(128)]
+    gaps = (0, -10, -1)
+    eng = engine.Engine("sw", nuc.matrix, gaps, device=dev)
+    stats, _, mat = run_set(eng, dna, nuc.lut, "(g) long DNA SW NUC44", card)
+    if max(map(len, dna)) <= geometry.W_MAX:
+        raise AssertionError("(g) no sequence beyond W_MAX")
+    sub, g = engine.from_reference_inputs(nuc.matrix, gaps, dev)
+    plain_sample(rng, dev, dna, nuc.lut, sub, g, "sw", mat, 64, "(g) long")
+    log(f"(g) long: 64 sampled pairs == plain version on the card; "
+        f"{stats.gcups:.2f} GCUPS")
+    few = [s.tobytes().decode() for s in dna if len(s) > geometry.W_MAX][:3]
+    got = align(few, algo="sw", matrix="nuc44", open=10, extend=1,
+                device=dev.type)
+    plain_sample(rng, dev, [np.frombuffer(s.encode(), np.uint8) for s in few],
+                 nuc.lut, sub, g, "sw", got, 16, "(g) align() long")
+    with tempfile.TemporaryDirectory() as td:
+        fa = Path(td) / "long.fasta"
+        fa.write_text("".join(f">s{k}\n{s}\n" for k, s in enumerate(few)))
+        r = subprocess.run(
+            [sys.executable, "-m", "sequencealigner_tpu_torch.cli", "-i",
+             str(fa), "-m", "nuc44", "-a", "sw", "-s", "10", "-e", "1", "-W",
+             "-F", "-P"], cwd=ROOT, capture_output=True, text=True,
+            timeout=300,
+        )
+    if r.returncode != 0:
+        raise AssertionError(f"seqalign-torch long failed:\n{r.stdout}"
+                             f"{r.stderr}")
+    log(f"(g) align() on {len(few)} sequences over {geometry.W_MAX} nt == "
+        "plain; seqalign-torch -m nuc44 -a sw -W on them: rc 0")
+    blosum = matrices.get("blosum62")
+    wide = blosum.matrix.astype(np.int64) * 20
+    raw = proteins(rng, 512, 50, 500)
+    eng = engine.Engine("ga", wide, gaps, device=dev)
+    stats, _, mat = run_set(eng, raw, blosum.lut,
+                            "(g) wide BLOSUM62x20 GA 10/1", card)
+    sub, g = engine.from_reference_inputs(wide, gaps, dev)
+    plain_sample(rng, dev, raw, blosum.lut, sub, g, "ga", mat, 256,
+                 "(g) wide")
+    log(f"(g) wide: max |score| {int(np.abs(wide).max())}, 256 sampled pairs"
+        f" == plain version on the card; {stats.gcups:.2f} GCUPS")
 
 
 def main() -> int:
@@ -255,11 +478,22 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     err, times = phase_b(rng, dev, M)
     phase_c(dev, M)
-    _, launches = phase_d(rng, dev, M, 4096, 50, 500, card, "main", 32)
-    phase_d(rng, dev, M, 1024, 24, 64, card, "bench.py shape", 32)
+    main_set = proteins(rng, 4096, 50, 500)
+    _, launches, tiles_mat = phase_d(rng, dev, M, main_set, card, "main", 32)
+    phase_d(rng, dev, M, proteins(rng, 1024, 24, 64), card, "bench.py shape",
+            32)
+    err["align_grid"], grid_times, grid_launches = phase_e(
+        rng, dev, M, card, args.seed)
+    launches["align_grid"] = grid_launches["align_grid"]
+    phase_f(dev, M, main_set, tiles_mat, card)
+    phase_g(rng, dev, card)
+    # ms / plain_ms: GA at (b)'s multi-band 160 shape, the grid kernel at
+    # (e)'s 80 x 70 shape.
+    shape_times = {name: times[(name, "multi-band 160")]
+                   for name in ("align_tiles", "align_pairs")}
+    shape_times["align_grid"] = grid_times
     kernels = []
-    for name in ("align_tiles", "align_pairs"):
-        t_k, t_p = times[(name, "multi-band 160")]
+    for name, (t_k, t_p) in shape_times.items():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],

@@ -1,27 +1,38 @@
-"""Alignment engine of the port: the tiles-v2 schedule on one device.
+"""Alignment engine of the port: the reference's two schedules on one device.
 
-Port of ``sequencealigner_tpu/engine.py`` (its default single-device path).
-Per bucket combo the pair space is scored as outer-product tiles
-(ops/cuda_dp.align_tiles); a same-bucket combo also sends the per-window
-diagonal triangles through the per-pair kernel (ops/cuda_dp.align_pairs),
-whose pair rows are inverted from slot ids on the device.  Scores are
-narrowed to int16 on the device where they provably fit, copied to pinned
-host memory on the dispatch stream, and scattered into the OutputStore by a
-background flusher thread while later dispatches run; a poller reads
-completion through ``torch.cuda.Event.query()`` for live progress.
+Port of ``sequencealigner_tpu/engine.py`` (its single-device paths).
 
-On ``device="cpu"`` the same schedule runs through the kernels' plain
+- **tiles-v2** (the default): per bucket combo the pair space is scored as
+  outer-product tiles (ops/cuda_dp.align_tiles); a same-bucket combo also
+  sends the per-window diagonal triangles through the per-pair kernel
+  (ops/cuda_dp.align_pairs).
+- **linear-v1**: every combo is cut into superblocks of consecutive pair
+  ids (rect: id = rc * count_k + rk; tri: the closed-form triangle) and
+  scored by the per-pair kernel.  A run takes it, as the reference does,
+  when SEQALIGN_TPU_OUTER=0 at construction, when any bucket is wider than
+  geometry.W_MAX (long sequences) or when the matrix has |score| > 127.
+  The kernels need neither bound (the band-crossing row lives in device
+  memory, the matrix is int32); the block stream follows the reference's
+  so that schedule tokens and block ids mean the same pairs in both.
+
+Pair rows are inverted from one start id per block on the device.  Scores
+are narrowed to int16 on the device where they provably fit, copied to
+pinned host memory on the dispatch stream, and scattered into the
+OutputStore by a background flusher thread while later dispatches run; a
+poller reads completion through ``torch.cuda.Event.query()`` for live
+progress.
+
+On ``device="cpu"`` the same schedules run through the kernels' plain
 PyTorch versions (the -C path, and what the CPU tests drive).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the linear-v1 schedule (SEQALIGN_TPU_OUTER=0, A8), bucket edges beyond
-W_MAX and matrices with |score| > 127 (A9), checkpoint journals (A11) and
-multi-host partitions and mergers (A13).
+checkpoint journals (A11) and multi-host partitions and mergers (A13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import threading
 import time
@@ -59,7 +70,8 @@ def from_reference_inputs(sub, gaps, device):
 
 def _tri_invert(lin):
     """Closed-form triangle inversion lin -> (j, i), i < j: float32 sqrt and
-    two integer corrections (exact far beyond the TRI_W-slot windows)."""
+    two integer corrections, as the reference computes it (exact for row
+    counts up to ~16M; Schedule.build splits buckets at 2^24 rows)."""
     j = ((1.0 + torch.sqrt(1.0 + 8.0 * lin.to(torch.float32))) * 0.5).to(
         torch.int64
     )
@@ -67,6 +79,18 @@ def _tri_invert(lin):
         j = torch.where(j * (j - 1) // 2 > lin, j - 1, j)
         j = torch.where((j + 1) * j // 2 <= lin, j + 1, j)
     return j, lin - j * (j - 1) // 2
+
+
+def _pair_rows(lin, npairs: int, rows: int, tri: bool):
+    """Bucket rows (rc, rk) of linear-v1 pair ids: a same-bucket combo's
+    triangle (id = rc*(rc-1)/2 + rk) or a cross-bucket rectangle (id =
+    rc * rows + rk, rows the k bucket's count); pad ids map to pair 0."""
+    lin = torch.where(lin < npairs, lin, 0)
+    if tri:
+        rc, rk = _tri_invert(lin)
+    else:
+        rc, rk = lin // rows, lin % rows
+    return rc.to(torch.int32), rk.to(torch.int32)
 
 
 def _diag_rows(lin, n_slots: int, rows: int):
@@ -96,16 +120,6 @@ class Engine:
     def __init__(self, algo: str, sub: np.ndarray, gaps, *, device="cuda"):
         if algo not in ALGOS:
             raise ValueError(f"unknown algorithm {algo!r}")
-        if np.abs(np.asarray(sub, np.int64)).max() > 127:
-            raise NotImplementedError(
-                "substitution scores beyond the int8 range are not ported "
-                "yet (ROADMAP A9)"
-            )
-        if os.environ.get("SEQALIGN_TPU_OUTER", "1") == "0":
-            raise NotImplementedError(
-                "the linear-v1 schedule (SEQALIGN_TPU_OUTER=0) is not ported "
-                "yet (ROADMAP A8)"
-            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device available")
@@ -114,22 +128,35 @@ class Engine:
         self.sub_dev, self.gaps_dev = from_reference_inputs(
             sub, self.gaps, self.device
         )
+        # The largest |substitution score| bounds the int16 narrowing.  Past
+        # the int8 range the reference leaves its Pallas kernels (their
+        # score grid is int8), so such a run takes linear-v1 with the
+        # target-cells block widths there, and here too (same block ids).
+        self.max_sub = int(np.abs(np.asarray(sub, np.int64)).max())
+        # Read at construction, as the reference does: 0 selects linear-v1.
+        self.outer = os.environ.get("SEQALIGN_TPU_OUTER", "1") != "0"
         self._cuda = self.device.type == "cuda"
         self._plock = threading.Lock()  # guards the pending list (poller)
         # One-entry cache of per-bucket device arrays, keyed by SequenceSet
         # identity: repeated align_all calls on one set skip the uploads.
         self._bucket_cache: tuple | None = None
 
+    def _tiles(self, sched: Schedule) -> bool:
+        """Whether a run over ``sched`` takes tiles-v2 (else linear-v1)."""
+        return self.outer and self.max_sub <= 127 and all(
+            geometry.supports(b.edge, b.edge) for b in sched.buckets
+        )
+
     def schedule_token(self, lengths) -> str:
         """Identifier of the block-schedule geometry for ``lengths``; equal
-        to the reference engine's token on its default (tile) path."""
+        to the reference engine's token (its Pallas engine) in every
+        configuration: tiles-v2 or linear-v1, and a hash of the buckets."""
         sched = Schedule.build(np.asarray(lengths))
         geo = zlib.crc32(np.asarray(
             [(b.edge, b.start, b.end) for b in sched.buckets], np.int64
         ).tobytes())
-        if all(geometry.supports(b.edge, b.edge) for b in sched.buckets):
-            return f"tiles-v2.{geo:08x}"
-        return f"linear-v1.{geo:08x}"
+        kind = "tiles-v2" if self._tiles(sched) else "linear-v1"
+        return f"{kind}.{geo:08x}"
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(x))
@@ -137,21 +164,17 @@ class Engine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _bucket_arrays(self, ss: SequenceSet, sched: Schedule) -> list:
-        """Per bucket: (cwords, kmatT, klens, diag) on the device,
-        the tile kernel's arrays (geometry.pack_bucket_outer) plus, for
-        buckets with a diagonal remainder, the per-pair kernel's (count,
-        edge) int8 code matrix and int32 lengths."""
+    def _bucket_arrays(self, ss: SequenceSet, sched: Schedule,
+                       tiles: bool) -> list:
+        """Per bucket: ``(codes, outer)`` on the device.  ``codes`` is the
+        per-pair kernel's (count, edge) int8 code matrix and int32 lengths;
+        ``outer`` the tile kernel's (cwords, kmatT, klens)
+        (geometry.pack_bucket_outer), None under linear-v1."""
         from .io import native
 
         lut = ss.lut
         out = []
         for b in sched.buckets:
-            if not geometry.supports(b.edge, b.edge):
-                raise NotImplementedError(
-                    f"bucket edge {b.edge} exceeds W_MAX={geometry.W_MAX}; "
-                    "long sequences are not ported yet (ROADMAP A9)"
-                )
             rows = sched.order[b.start : b.end]
             mat = native.pack_rows(ss.data, ss.offsets, rows, b.edge, lut, PAD)
             if mat is None:
@@ -160,29 +183,42 @@ class Engine:
                     s = ss.data[ss.offsets[orig] : ss.offsets[orig + 1]]
                     mat[local, : len(s)] = lut[s]
             blens = sched.lengths_sorted[b.start : b.end].astype(np.int32)
-            cw, kT, kl = geometry.pack_bucket_outer(mat, blens, b.edge)
-            diag = None
-            if b.count >= 2:
-                diag = (self._put(mat), self._put(blens))
-            out.append((self._put(cw), self._put(kT), self._put(kl), diag))
+            outer = None
+            if tiles:
+                outer = tuple(map(self._put, geometry.pack_bucket_outer(
+                    mat, blens, b.edge)))
+            out.append(((self._put(mat), self._put(blens)), outer))
         return out
 
+    def _superblock_width(self, Lc: int, Lk: int, npairs: int):
+        """(pairs per block, tail unit) of a per-pair combo, as the
+        reference's one-device engine sizes them (its _superblock_width):
+        within the kernel's geometry, power-of-two stripes of LANE pairs up
+        to pick_S (tail unit LANE); beyond it (long edges, or |score| > 127),
+        about 2^24 cells per block with no tail shrinking (unit 0)."""
+        if self.max_sub <= 127 and geometry.supports(Lc, Lk):
+            B = geometry.LANE
+            nb, Kpad, CD, W = geometry.geometry(Lc, Lk, B)
+            S = geometry.pick_S(B, Kpad, W)
+            s_needed = 1 << (max(1, -(-npairs // B)) - 1).bit_length()
+            return max(1, min(S, s_needed)) * B, B
+        b = max(8, min(4096, (1 << 24) // (Lc * Lk)))
+        b = 1 << (int(b).bit_length() - 1)
+        while b // 2 >= 8 and b // 2 >= npairs:
+            b //= 2
+        return b, 0
+
     def _diag_width(self, Lc: int, n_slots: int) -> int:
-        """Slots per diagonal-remainder block: the reference's per-pair
-        superblock width (pow2 stripes of pick_S, shrunk for small combos),
+        """Slots per diagonal-remainder block: the per-pair superblock width,
         capped near 2^26 cells so one block does not dwarf the tiles."""
-        B = geometry.LANE
-        nb, Kpad, CD, W = geometry.geometry(Lc, Lc, B)
-        S = geometry.pick_S(B, Kpad, W)
-        s_needed = 1 << (max(1, -(-n_slots // B)) - 1).bit_length()
-        width = max(1, min(S, s_needed)) * B
+        width, B = self._superblock_width(Lc, Lc, n_slots)
         return min(width, max(B, (1 << 26) // (Lc * Lc) // B * B))
 
     def _int16_ok(self, Lc: int, Lk: int) -> bool:
         """Whether every score of an (Lc, Lk)-bucket pair provably fits
         int16: any alignment path has at most Lc + Lk steps, each changing
-        the score by at most max(|sub| <= 127, |gap|, |open|, |extend|)."""
-        step = max(127, *(abs(int(g)) for g in self.gaps))
+        the score by at most max(127, max|sub|, |gap|, |open|, |extend|)."""
+        step = max(127, self.max_sub, *(abs(int(g)) for g in self.gaps))
         return (Lc + Lk) * step < 32767
 
     def _enqueue(self, dev: torch.Tensor, part: list, pending: list) -> None:
@@ -214,21 +250,21 @@ class Engine:
             out = out.to(torch.int16)
         self._enqueue(out, blks, pending)
 
-    def _dispatch_diag(self, blks: list, ctx: tuple, pending: list) -> None:
-        """One per-pair launch for equal-width diagonal-remainder blocks:
-        one int64 start id per block goes up, slot ids are inverted to
-        bucket rows on the device."""
-        (mat, lens), n_slots, Lc = ctx
+    def _dispatch_pairs(self, blks: list, ctx: tuple, pending: list) -> None:
+        """One per-pair launch for equal-width blocks (linear-v1 superblocks
+        or diagonal-remainder blocks): one int64 start id per block goes up,
+        ``rows_of`` inverts the ids to bucket rows on the device."""
+        (mat_c, lens_c), (mat_k, lens_k), rows_of, Lc, Lk = ctx
         width = blks[0].width
         starts = self._put(np.asarray([b.start for b in blks], np.int64))
         lin = (starts[:, None] + torch.arange(width, device=self.device)
                ).reshape(-1)
-        rc, rk = _diag_rows(lin, n_slots, mat.shape[0])
+        rc, rk = rows_of(lin)
         out = cuda_dp.align_pairs(
-            mat, mat, rc, rk, lens, lens, self.sub_dev, self.gaps_dev,
+            mat_c, mat_k, rc, rk, lens_c, lens_k, self.sub_dev, self.gaps_dev,
             algo=self.algo,
         )
-        if self._int16_ok(Lc, Lc):
+        if self._int16_ok(Lc, Lk):
             out = out.to(torch.int16)
         self._enqueue(out, blks, pending)
 
@@ -241,9 +277,13 @@ class Engine:
         partition=None,
         merger=None,
         journal=None,
+        limit_pairs: int | None = None,
     ) -> AlignStats:
         """Score the whole pair space into ``store`` (None, as with the
-        CLI's -W: scores are fetched and counted but not kept)."""
+        CLI's -W: scores are fetched and counted but not kept).
+
+        limit_pairs: stop scheduling once this many pairs are claimed (the
+        last block is finished), as the reference's benchmarking cut."""
         if journal is not None:
             raise NotImplementedError(
                 "checkpoint journals are not ported yet (ROADMAP A11)"
@@ -253,6 +293,7 @@ class Engine:
                 "multi-host partitions are not ported yet (ROADMAP A13)"
             )
         sched = Schedule.build(ss.lengths)
+        tiles = self._tiles(sched)
         total_pairs = sched.total_pairs()
         ui.pinfo("Performing %d pairwise alignments", total_pairs)
         bar = ui.Progress(total_pairs, "Aligning sequences") if progress else None
@@ -261,12 +302,13 @@ class Engine:
         if self._bucket_cache is not None and self._bucket_cache[0] is ss:
             buckets = self._bucket_cache[1]
         else:
-            buckets = self._bucket_arrays(ss, sched)
+            buckets = self._bucket_arrays(ss, sched, tiles)
             self._bucket_cache = (ss, buckets)
 
         stats = AlignStats()
         pending: list = []  # [host scores, event, blocks, progress claimed]
         inflight = 0
+        scheduled = 0  # pairs claimed so far (limit_pairs)
         flusher: list = []  # at most one outstanding async flush
         flush_exc: list = []
 
@@ -365,52 +407,82 @@ class Engine:
             elif pending and (not flusher or not flusher[0].is_alive()):
                 flush()
 
+        def reached() -> bool:
+            return limit_pairs is not None and scheduled >= limit_pairs
+
+        def stream(blocks, dispatch, group_max: int = 0) -> None:
+            """Send one combo's blocks to ``dispatch`` in groups of equal
+            width (at most group_max blocks, 0 for no cap), pacing flushes;
+            stops once limit_pairs is reached."""
+            nonlocal inflight, scheduled
+            group: list = []
+
+            def send():
+                nonlocal group
+                if group:
+                    dispatch(group)
+                    group = []
+
+            for blk in blocks:
+                if group and blk.width != group[0].width:
+                    send()
+                inflight += blk.width
+                scheduled += blk.n_valid
+                group.append(blk)
+                if reached():
+                    break
+                if group_max and len(group) >= group_max:
+                    send()
+                pace(send)
+            send()
+
         for a, b in sched.combos():
-            if sched.combo_pair_count(a, b) == 0:
+            if reached():
+                break
+            npairs = sched.combo_pair_count(a, b)
+            if npairs == 0:
                 continue
             Lk = sched.buckets[a].edge
             Lc = sched.buckets[b].edge
-            tile_ctx = (buckets[b][0], buckets[a][1], buckets[a][2], Lc, Lk)
-            T_group = geometry.pick_T(Lc, Lk)
-            blks: list = []
-
-            def dispatch_tiles():
-                nonlocal blks
-                if blks:
-                    self._dispatch_tiles(blks, tile_ctx, pending)
-                    blks = []
-
-            for blk in sched.tiles(a, b):
-                inflight += blk.width
-                blks.append(blk)
-                if len(blks) >= T_group:
-                    dispatch_tiles()
-                pace(dispatch_tiles)
-            dispatch_tiles()
-            diag = buckets[a][3]
-            if a != b or diag is None:
+            (codes_k, outer_k), (codes_c, outer_c) = buckets[a], buckets[b]
+            if not tiles:
+                # linear-v1: superblocks of consecutive pair ids.
+                rows = sched.buckets[a].count
+                if rows > (1 << 24):
+                    raise RuntimeError(
+                        f"bucket of {rows} rows exceeds the f32 pair-id "
+                        "inversion range; build the schedule with "
+                        "Schedule.build (which splits oversized buckets)"
+                    )
+                width, B = self._superblock_width(Lc, Lk, npairs)
+                ctx = (codes_c, codes_k, functools.partial(
+                    _pair_rows, npairs=npairs, rows=rows, tri=a == b
+                ), Lc, Lk)
+                chunk = max(1, FLUSH_PAIRS // width)
+                stream(
+                    sched.blocks(a, b, width=width, tail_min=B or None),
+                    lambda g: self._dispatch_pairs(g, ctx, pending),
+                    1 << (chunk.bit_length() - 1),
+                )
+                continue
+            tctx = (outer_c[0], outer_k[1], outer_k[2], Lc, Lk)
+            stream(sched.tiles(a, b),
+                   lambda g: self._dispatch_tiles(g, tctx, pending),
+                   geometry.pick_T(Lc, Lk))
+            if a != b or reached():
                 continue
             # Diagonal remainder: the per-window triangles excluded from
             # the tile stream (Schedule.tiles), through the per-pair kernel.
-            n_slots = -(-sched.buckets[a].count // TILE_B) * TRI_W
-            diag_ctx = (diag, n_slots, Lc)
-            dblks: list = []
-
-            def dispatch_diag():
-                nonlocal dblks
-                if dblks:
-                    self._dispatch_diag(dblks, diag_ctx, pending)
-                    dblks = []
-
-            for blk in sched.diag_blocks(
-                a, self._diag_width(Lc, n_slots), tail_min=TILE_B
-            ):
-                if dblks and blk.width != dblks[0].width:
-                    dispatch_diag()
-                inflight += blk.width
-                dblks.append(blk)
-                pace(dispatch_diag)
-            dispatch_diag()
+            count = sched.buckets[a].count
+            n_slots = -(-count // TILE_B) * TRI_W
+            ctx = (codes_k, codes_k, functools.partial(
+                _diag_rows, n_slots=n_slots, rows=count
+            ), Lc, Lc)
+            stream(
+                sched.diag_blocks(a, self._diag_width(Lc, n_slots),
+                                  tail_min=TILE_B),
+                lambda g: self._dispatch_pairs(g, ctx, pending),
+            )
         if poller is not None:
             poll_stop.set()
             poller.join(timeout=2.0)

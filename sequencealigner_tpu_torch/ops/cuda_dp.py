@@ -1,14 +1,15 @@
 """Wrappers, build and ctypes binding of the Hopper DP kernels
 (csrc/align_dp.cu).
 
-``align_tiles`` and ``align_pairs`` take the contracts of their plain
-versions in ops/torch_dp.py.  For tensors on the CPU they call the plain
-version; for CUDA tensors they launch the kernel on the current stream (or
-raise): there is no fallback.  Each wrapper counts its launches in a plain
-integer attribute, ``align_tiles.launches`` / ``align_pairs.launches``.
-The wrappers check devices, dtypes, shapes and contiguity; the row indices
-inside ``desc`` / ``rc`` / ``rk`` are trusted (the engine derives them from
-the schedule), since reading them back would synchronise the stream.
+``align_tiles``, ``align_pairs`` and ``align_grid`` take the contracts of
+their plain versions in ops/torch_dp.py.  For tensors on the CPU they call
+the plain version; for CUDA tensors they launch the kernel on the current
+stream (or raise): there is no fallback.  Each wrapper counts its launches
+in a plain integer attribute, e.g. ``align_tiles.launches``.  The wrappers
+check devices, dtypes, shapes and contiguity; the row indices inside
+``desc`` / ``rc`` / ``rk`` and the lengths are trusted (the engine derives
+them from the schedule), since reading them back would synchronise the
+stream.
 
 The kernels are compiled on the first CUDA call, from the package's own
 ``csrc/*.cu`` only, with nvcc into a shared library with a plain C interface
@@ -40,7 +41,12 @@ ARCH = "arch=compute_90a,code=sm_90a"
 #: Rows per register band in the kernels (csrc/align_dp.cu KB): pairs with
 #: more rows than this hand rows between bands through the scratch stream.
 KB = 32
-#: Upper bound on one launch's band-crossing scratch.
+#: Upper bound on one launch's band-crossing scratch, unless one block per
+#: SM needs more.  A block holds 2 * 128 * 4 B = 1 KiB per column (16 MiB
+#: at 16,384 columns) and the grid keeps at least one block per SM (132 on
+#: an H100), so the scratch needs 132 KiB per column of the longest edge:
+#: an edge of about 500,000 columns is the most an 80 GB card admits (the
+#: kernels have no W_MAX; lengths and in-band offsets are int32).
 SCRATCH_BYTES = 2 << 30
 #: Resident blocks per SM the grid is sized for.
 BLOCKS_PER_SM = 8
@@ -99,6 +105,8 @@ def load_library() -> ctypes.CDLL:
             p, i, p, i, p, p, p, p, i, p, p, i, p, p, i, i, p,
         ]
         lib.align_dp_pairs.restype = i
+        lib.align_dp_grid.argtypes = [p, i, i, i, i, p, p, p, i, p, p, i, i, p]
+        lib.align_dp_grid.restype = i
         lib.align_dp_error_string.argtypes = [i]
         lib.align_dp_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -224,3 +232,41 @@ def align_pairs(mat_c, mat_k, rc, rk, lens_c, lens_k, sub, gaps, *,
 
 
 align_pairs.launches = 0
+
+
+def align_grid(sk, l1, l2, gaps, *, algo: str):
+    """NW/GA/SW scores of the S*B pairs of a prebuilt (S, W, Kpad, B) int8
+    score grid -> (S*B,) int32 (contract: torch_dp.align_grid_plain)."""
+    if sk.device.type == "cpu":
+        return torch_dp.align_grid_plain(sk, l1, l2, gaps, algo=algo)
+    dev = sk.device
+    if dev.type != "cuda":
+        raise ValueError(f"align_grid runs on CUDA or CPU tensors, not {dev}")
+    _check("sk", sk, torch.int8, dev, 4)
+    _check("l1", l1, torch.int32, dev, 1)
+    _check("l2", l2, torch.int32, dev, 1)
+    _check("gaps", gaps, torch.int32, dev, 1)
+    S, W, Kpad, B = sk.shape
+    n = S * B
+    if l1.shape != (n,) or l2.shape != (n,) or gaps.shape != (3,):
+        raise ValueError("bad l1/l2/gaps shape")
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(dev):
+        grid, scratch, wmax = _grid_and_scratch(
+            S * -(-B // LANE), W, Kpad > KB, dev
+        )
+        err = lib.align_dp_grid(
+            sk.data_ptr(), S, W, Kpad, B, l1.data_ptr(), l2.data_ptr(),
+            gaps.data_ptr(), ALGO_ID[algo], out.data_ptr(),
+            scratch.data_ptr(), wmax, grid,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, err, "align_grid")
+    align_grid.launches += 1
+    return out
+
+
+align_grid.launches = 0

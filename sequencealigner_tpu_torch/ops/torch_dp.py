@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the two DP kernels (csrc/align_dp.cu).
+"""Plain PyTorch versions of the three DP kernels (csrc/align_dp.cu).
 
 Each function has exactly the contract of its kernel's wrapper in
 ops/cuda_dp.py; the wrappers call them for tensors on the CPU, the CPU tests
 run them, and chip_smoke.py holds the kernels against them on the card.
 
-Both score pairs by one column sweep over all pairs at once.  For column c
-(1-based) and DP rows r = 1..K:
+All three score pairs by one column sweep over all pairs at once (_sweep);
+they differ only in where a column's substitution scores come from: the
+code matrices and the (25, 25) matrix, or a prebuilt int8 score grid.  For
+column c (1-based) and DP rows r = 1..K:
 
     diag[r] = H[r-1][c-1] + sub[s2[r-1]][s1[c-1]]
     x[r]    = max(H[r][c-1] + opn, X[r][c-1] + ext)
@@ -41,28 +43,24 @@ def _border(algo: str, k: torch.Tensor, gap: int, opn: int, slope: int):
     return torch.zeros_like(k)
 
 
-def score_pairs(ccodes, l1, kcodes, l2, sub, gaps, *, algo: str):
-    """Scores of P pairs: column codes ccodes (P, Wc), row codes kcodes
-    (P, K), true lengths l1, l2 (P,), sub the (25, 25) int32 padded
-    substitution matrix, gaps the (3,) int32 [gap, open, extend] (negated).
-    Returns (P,) int32."""
+def _sweep(l1, l2, K: int, columns, gaps, *, algo: str):
+    """The column sweep over P pairs: l1, l2 (P,) true lengths, K DP rows.
+    ``columns(act)`` gets the indices of the pairs that score (both lengths
+    > 0) and returns the function c -> their (n, K) int32 substitution
+    block of column c (1-based).  Returns (P,) int32."""
     if algo not in ALGOS:
         raise ValueError(f"unknown algorithm {algo!r}")
-    dev = kcodes.device
-    P, K = kcodes.shape
-    out = torch.zeros(P, dtype=torch.int32, device=dev)
+    dev = l1.device
+    out = torch.zeros(l1.shape[0], dtype=torch.int32, device=dev)
     l1 = l1.to(torch.int64)
     l2 = l2.to(torch.int64)
     act = torch.nonzero((l1 > 0) & (l2 > 0)).squeeze(1)
     if act.numel() == 0:
         return out
     ncol = int(l1[act].max())
-    cc = ccodes[act, :ncol].to(torch.int64)
-    kc = kcodes[act].to(torch.int64) * (PAD + 1)  # row offsets into sub
     l1, l2 = l1[act], l2[act]
     gap, opn, ext = (int(g) for g in gaps.tolist())
     slope = gap if algo == "nw" else max(opn, ext)
-    subf = sub.reshape(-1).to(torch.int32)
     i32 = torch.int32
     rows = torch.arange(K + 1, device=dev, dtype=i32)
     ramp = rows * slope
@@ -71,10 +69,11 @@ def score_pairs(ccodes, l1, kcodes, l2, sub, gaps, *, algo: str):
     X = torch.full((n, K), SCORE_MIN, dtype=i32, device=dev)
     valid_row = rows[1:].unsqueeze(0) <= l2.unsqueeze(1)  # (n, K), SW only
     res = torch.zeros(n, dtype=i32, device=dev)
+    colsub = columns(act)
     for c in range(1, ncol + 1):
         h0 = int(_border(algo, torch.tensor(c), gap, opn, slope))
         col = torch.full((n, 1), h0, dtype=i32, device=dev)
-        diag = H[:, :-1] + subf[kc + cc[:, c - 1 : c]]
+        diag = H[:, :-1] + colsub(c)
         if algo == "nw":
             z = torch.cat([col, torch.maximum(diag, H[:, 1:] + gap)], 1)
             H = torch.cummax(z - ramp, 1).values + ramp
@@ -97,6 +96,21 @@ def score_pairs(ccodes, l1, kcodes, l2, sub, gaps, *, algo: str):
             res = torch.where(l1 == c, at, res)
     out[act] = res
     return out
+
+
+def score_pairs(ccodes, l1, kcodes, l2, sub, gaps, *, algo: str):
+    """Scores of P pairs: column codes ccodes (P, Wc), row codes kcodes
+    (P, K), true lengths l1, l2 (P,), sub the (25, 25) int32 padded
+    substitution matrix, gaps the (3,) int32 [gap, open, extend] (negated).
+    Returns (P,) int32."""
+    subf = sub.reshape(-1).to(torch.int32)
+
+    def columns(act):
+        cc = ccodes[act].to(torch.int64)
+        kc = kcodes[act].to(torch.int64) * (PAD + 1)  # row offsets into sub
+        return lambda c: subf[kc + cc[:, c - 1 : c]]
+
+    return _sweep(l1, l2, kcodes.shape[1], columns, gaps, algo=algo)
 
 
 def align_tiles_plain(desc, cwords, kmatT, klens, sub, gaps, *, algo: str):
@@ -145,3 +159,20 @@ def align_pairs_plain(mat_c, mat_k, rc, rk, lens_c, lens_k, sub, gaps, *,
     return score_pairs(
         mat_c[rc], lens_c[rc], mat_k[rk], lens_k[rk], sub, gaps, algo=algo
     )
+
+
+def align_grid_plain(sk, l1, l2, gaps, *, algo: str):
+    """Plain version of the grid kernel (reference: pallas_dp.align_prebuilt).
+
+    sk (S, W, Kpad, B) int8 prebuilt score grid (ops/superblock.build_stream:
+    sk[s, w, k, b] = sub[s2[n, k]][s1[n, w]] for pair n = s*B + b, PAD_MARK
+    at pad rows and columns); l1, l2 (S*B,) int32 true lengths, l1 <= W and
+    l2 <= Kpad.  Returns (S*B,) int32 scores.  Cells beyond a pair's own
+    lengths do not reach its score."""
+    B, K = sk.shape[3], sk.shape[2]
+
+    def columns(act):
+        s, b = act // B, act % B
+        return lambda c: sk[s, c - 1, :, b].to(torch.int32)
+
+    return _sweep(l1, l2, K, columns, gaps, algo=algo)
