@@ -13,8 +13,11 @@ and no result line is printed.
   (b) each kernel against its plain PyTorch version on the card, NW/GA/SW,
       BLOSUM62, at the main path's shapes (single-band edge 64, multi-band
       edge 160, a cross-bucket 256 x 96 combo, diagonal-remainder blocks
-      with tail slots; random lengths including 1 and the edge, dummy
-      descriptor rows), exact equality, plus CUDA-event timings of both;
+      with tail slots, and a 512 x 320 combo of 700 x 400 rows in length
+      order whose 26 tiles go in one launch as the engine groups them, so
+      the tile kernel's work counter and persistent loop run; random
+      lengths including 1 and the edge, dummy descriptor rows), exact
+      equality, plus CUDA-event timings of both beside each call's bound;
   (c) the library align() on examples/peptides.fasta for NW/GA/SW against
       the NumPy oracle on every pair, and the seqalign-torch CLI (-W);
   (d) the main path at a size users run: 4096 proteins (lengths 50-500,
@@ -33,7 +36,12 @@ and no result line is printed.
       trials;
   (f) the linear-v1 schedule (SEQALIGN_TPU_OUTER=0) on (d)'s 4096-protein
       set: the matrix must equal (d)'s tiles-v2 matrix, with no tile launch
-      and some per-pair launches; wall time, pairs, cells and GCUPS;
+      and some per-pair launches; wall time, pairs, cells and GCUPS.  Then
+      (d)'s tiles-v2 run and this linear-v1 run in turns under
+      torch.profiler, twice: per kernel device ms, launches, bound and
+      share of the bound (tools/profile_main), the tile kernel's device
+      time over linear-v1's per-pair kernel time, and the tile kernel's
+      registers and resident blocks per SM;
   (g) long and wide inputs through the linear-v1 route: 128 DNA sequences
       of 3,000-9,000 nt (NUC44, SW 10/1; buckets beyond W_MAX), 64 sampled
       pairs against plain, plus align() and the CLI on three sequences over
@@ -50,7 +58,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import subprocess
 import sys
 import tempfile
@@ -68,7 +75,6 @@ REPLACES = {
     "align_grid": "sequencealigner_tpu/ops/pallas_dp.py:681",
 }
 ALGO_GAPS = [("nw", (-4, 0, 0)), ("ga", (0, -10, -1)), ("sw", (0, -10, -1))]
-RESIDUES = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
 
 
 def log(msg: str) -> None:
@@ -83,10 +89,14 @@ def smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def bucket(rng, count, edge):
+def bucket(rng, count, edge, in_order=False):
+    """(count, edge) codes and lengths (1 and the edge among them); with
+    in_order, rows by ascending length, as the engine packs a bucket."""
     from sequencealigner_tpu_torch.ops.geometry import PAD
 
     lens = rng.integers(1, edge + 1, count).astype(np.int32)
+    if in_order:
+        lens.sort()
     lens[0], lens[-1] = 1, edge
     mat = np.full((count, edge), PAD, np.int8)
     for i, ln in enumerate(lens):
@@ -94,26 +104,58 @@ def bucket(rng, count, edge):
     return mat, lens
 
 
+def tile_call_cells(desc, cwords, klens) -> int:
+    """True DP cells of one align_tiles call: per tile, the sum of its
+    c-row lengths times the sum of its k-lane lengths."""
+    c = np.concatenate([[0], np.cumsum(cwords[:, 0], dtype=np.int64)])
+    k = np.concatenate([[0], np.cumsum(klens[0], dtype=np.int64)])
+    return int(sum((c[c0 + 128] - c[c0]) * (k[kt * 128 + 128] - k[kt * 128])
+                   for c0, kt in desc))
+
+
+def bound(cells: int, tensors, algo: str = "ga"):
+    """(ms, what bounds it): the least time of a call on an H100, the larger
+    of its operations (true cells at the fewest SM clocks a cell needs,
+    tools/profile_main.bound_ms) and its bytes (each input read once, each
+    output written once, at 3.35 TB/s)."""
+    from sequencealigner_tpu_torch.tools.profile_main import bound_ms
+
+    ops = bound_ms(cells, algo)
+    mem = sum(t.numel() * t.element_size() for t in tensors) / 3.35e12 * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
 def phase_b(rng, dev, M):
     """Kernel vs plain at the main path's shapes; returns the worst error
-    per kernel and the GA timings at the multi-band shape."""
+    per kernel and, per (kernel, shape), the GA kernel and plain ms and the
+    call's bound."""
     from sequencealigner_tpu_torch import engine
     from sequencealigner_tpu_torch.ops import cuda_dp, geometry, torch_dp
     from sequencealigner_tpu_torch.scheduler import TRI_W
     from sequencealigner_tpu_torch.tools.profile_kernels import cuda_ms
 
-    shapes = [("single-band 64", 64, 64), ("multi-band 160", 160, 160),
-              ("cross 256x96", 256, 96), ("diag-tail 128", 128, 128)]
+    shapes = [("single-band 64", 64, 64, 300, 200),
+              ("multi-band 160", 160, 160, 300, 200),
+              ("cross 256x96", 256, 96, 300, 200),
+              ("diag-tail 128", 128, 128, 300, 200),
+              ("multi-tile 512x320", 512, 320, 700, 400)]
     err = {"align_tiles": 0, "align_pairs": 0}
     times = {}
-    for label, Lc, Lk in shapes:
-        cmat, clens = bucket(rng, 300, Lc)
-        kmat, klens = bucket(rng, 200, Lk)
+    for label, Lc, Lk, nc, nk in shapes:
+        multi = label.startswith("multi-tile")
+        cmat, clens = bucket(rng, nc, Lc, in_order=multi)
+        kmat, klens = bucket(rng, nk, Lk, in_order=multi)
         cw = geometry.pack_bucket_outer(cmat, clens, Lc)[0]
         _, kT, kl = geometry.pack_bucket_outer(kmat, klens, Lk)
         dummy = cw.shape[0] - geometry.S_TILE
-        desc = [(c0, kt) for kt in range(2) for c0 in range(0, 300, 128)]
+        nkt = -(-nk // geometry.LANE)
+        desc = [(c0, kt) for kt in range(nkt) for c0 in range(0, nc, 128)]
         desc = np.array(desc + [(dummy, 0), (dummy, 1)], np.int32)
+        if multi:
+            # One launch as the engine groups a combo of this many tiles.
+            cap = engine.FLUSH_PAIRS // (geometry.S_TILE * geometry.LANE)
+            if cuda_dp.tiles_per_launch(len(desc), cap) < len(desc):
+                raise AssertionError(f"(b) {label}: not one launch")
         targs = [torch.from_numpy(a).to(dev) for a in (desc, cw, kT, kl)]
         if Lc == Lk:  # the same-bucket diagonal remainder, tail window
             n_slots = 3 * TRI_W  # 300 rows: windows of 128, 128, 44
@@ -121,12 +163,15 @@ def phase_b(rng, dev, M):
             rc, rk = engine._diag_rows(lin, n_slots, 300)
             mats = (cmat, cmat, clens, clens)
         else:
-            rc = torch.from_numpy(rng.integers(0, 300, 8192).astype(np.int32))
-            rk = torch.from_numpy(rng.integers(0, 200, 8192).astype(np.int32))
+            rc = torch.from_numpy(rng.integers(0, nc, 8192).astype(np.int32))
+            rk = torch.from_numpy(rng.integers(0, nk, 8192).astype(np.int32))
             rc, rk = rc.to(dev), rk.to(dev)
             mats = (cmat, kmat, clens, klens)
         mc, mk, lc, lk = (torch.from_numpy(a).to(dev) for a in mats)
         pargs = (mc, mk, rc, rk, lc, lk)
+        cells = {"align_tiles": tile_call_cells(desc, cw, kl),
+                 "align_pairs": int((lc[rc.long()].long()
+                                     * lk[rk.long()].long()).sum())}
         for algo, gaps in ALGO_GAPS:
             sub, g = engine.from_reference_inputs(M.matrix, gaps, dev)
             for name, kern, plain, args in (
@@ -145,10 +190,13 @@ def phase_b(rng, dev, M):
                 if algo == "ga":
                     t_k = cuda_ms(lambda: kern(*args, sub, g, algo=algo), 10)
                     t_p = cuda_ms(lambda: plain(*args, sub, g, algo=algo), 2)
-                    times[(name, label)] = (t_k, t_p)
-                    log(f"(b) {name:11s} {label:15s} GA  kernel {t_k:.4f} ms"
-                        f"  plain {t_p:.4f} ms")
-            log(f"(b) {label:15s} {algo}: both kernels == plain (exact)")
+                    b, by = bound(cells[name], [*args, sub, g, got])
+                    times[(name, label)] = (t_k, t_p, b, by)
+                    log(f"(b) {name:11s} {label:18s} GA  kernel {t_k:.4f} ms"
+                        f"  plain {t_p:.4f} ms  bound {b:.4f} ms ({by}, "
+                        f"{cells[name]} cells)  share {b / t_k:.3f}")
+            log(f"(b) {label:18s} {algo}: both kernels == plain (exact), "
+                f"{len(desc)} tiles in one align_tiles launch")
     return err, times
 
 
@@ -179,11 +227,6 @@ def phase_c(dev, M):
     if r.returncode != 0:
         raise AssertionError(f"seqalign-torch failed:\n{r.stdout}{r.stderr}")
     log("(c) seqalign-torch -i examples/peptides.fasta -a ga -W -F: rc 0")
-
-
-def proteins(rng, n, lo, hi):
-    return [rng.choice(RESIDUES, int(rng.integers(lo, hi + 1)))
-            for _ in range(n)]
 
 
 def zero_launches() -> None:
@@ -307,14 +350,17 @@ def phase_e(rng, dev, M, card, seed):
             if not torch.equal(got, want) or not torch.equal(inline, want):
                 raise AssertionError(f"(e) align_grid {algo} {Lc}x{Lk}")
             if algo == "ga" and (Lc, Lk) == (80, 70):
+                cells = int((l1.long() * l2.long()).sum())
                 times = (
                     cuda_ms(lambda: cuda_dp.align_grid(sk, l1, l2, g,
                                                        algo="ga"), 10),
                     cuda_ms(lambda: torch_dp.align_grid_plain(
                         sk, l1, l2, g, algo="ga"), 2),
+                    *bound(cells, [sk, l1, l2, g, got]),
                 )
                 log(f"(e) align_grid 80x70 GA kernel {times[0]:.4f} ms  "
-                    f"plain {times[1]:.4f} ms")
+                    f"plain {times[1]:.4f} ms  bound {times[2]:.4f} ms "
+                    f"({times[3]}, {cells} cells)")
         log(f"(e) align_grid and inline align_superblock {Lc}x{Lk} S={S}: "
             "NW/GA/SW == plain (exact)")
     Lc = Lk = 256
@@ -346,30 +392,17 @@ def phase_e(rng, dev, M, card, seed):
     t_plain = cuda_ms(lambda: torch_dp.align_grid_plain(sk, l1, l2, g,
                                                         algo="ga"), 1)
     cells = int((l1.long() * l2.long()).sum())
+    b, by = bound(cells, [sk, l1, l2, g, grid])
     log(f"(e) align_superblock GA 256x256 S={S} ({S * B} pairs, "
         f"{sk.numel() / 2**30:.2f} GiB grid) on {card}: grid and inline == "
         f"plain (exact); build_stream {t_build:.4f} ms, align_grid "
         f"{t_grid:.4f} ms ({cells / t_grid / 1e6:.1f} GCUPS true, "
-        f"{sk.numel() / t_grid / 1e6:.1f} Gcell/s padded), inline "
-        f"{t_inline:.4f} ms, plain {t_plain:.4f} ms; launches {launches}")
+        f"{sk.numel() / t_grid / 1e6:.1f} Gcell/s padded; bound {b:.4f} ms, "
+        f"{by}, share {b / t_grid:.3f}), inline {t_inline:.4f} ms, plain "
+        f"{t_plain:.4f} ms; launches {launches}")
     del sk, grid, inline, want
     fuzz_hw.run(seed, 8, log=lambda m: log(f"(e) fuzz_hw {m}"))
     return err, times, launches
-
-
-def linear_engine(algo, sub, gaps, dev):
-    """An Engine built under SEQALIGN_TPU_OUTER=0 (read at construction)."""
-    from sequencealigner_tpu_torch import engine
-
-    old = os.environ.get("SEQALIGN_TPU_OUTER")
-    os.environ["SEQALIGN_TPU_OUTER"] = "0"
-    try:
-        return engine.Engine(algo, sub, gaps, device=dev)
-    finally:
-        if old is None:
-            del os.environ["SEQALIGN_TPU_OUTER"]
-        else:
-            os.environ["SEQALIGN_TPU_OUTER"] = old
 
 
 def run_set(eng, raw, lut, label, card):
@@ -396,16 +429,41 @@ def run_set(eng, raw, lut, label, card):
 
 
 def phase_f(dev, M, raw, tiles_mat, card):
-    eng = linear_engine("ga", M.matrix, (0, -10, -1), dev)
+    """linear-v1 on the main set; then both schedules in turns, twice, each
+    once under the profiler (per kernel device ms, launches, bound and
+    share) and once not (wall time); and the registers and resident blocks
+    per SM of the tile kernel."""
+    from sequencealigner_tpu_torch import engine
+    from sequencealigner_tpu_torch.io.input import SequenceSet
+    from sequencealigner_tpu_torch.ops import cuda_dp
+    from sequencealigner_tpu_torch.tools import profile_main
+
+    eng = profile_main.linear_engine("ga", M.matrix, (0, -10, -1), dev)
     _, _, mat = run_set(eng, raw, M.lut, "(f) linear-v1 main", card)
     if not np.array_equal(mat, tiles_mat):
         raise AssertionError("(f) linear-v1 matrix != tiles-v2 matrix")
     log("(f) linear-v1 matrix == tiles-v2 matrix, element for element")
+    regs = profile_main.tile_registers()
+    log("(d) tiles_kernel registers per thread " + ", ".join(
+        f"{a} {regs.get(a)}" for a in ("nw", "ga", "sw")) + "; resident "
+        "blocks per SM " + ", ".join(
+            f"{a} {cuda_dp.tiles_resident(a)}" for a in ("nw", "ga", "sw")))
+    ss = SequenceSet.from_list(raw, M.lut)
+    bounds = profile_main.schedule_bounds(ss.lengths, "ga")
+    engines = {"tiles-v2": engine.Engine("ga", M.matrix, (0, -10, -1),
+                                         device=dev), "linear-v1": eng}
+    prof = profile_main.turns(
+        engines, ss, bounds, 2, log=log,
+        tag=lambda label: "(d) " if label == "tiles-v2" else "(f) ")
+    for r in prof["tiles-v2"]:
+        if not np.array_equal(r["matrix"], tiles_mat):
+            raise AssertionError("(d) profiled tiles-v2: matrix differs")
 
 
 def phase_g(rng, dev, card):
     from sequencealigner_tpu_torch import align, engine, matrices
     from sequencealigner_tpu_torch.ops import geometry, torch_dp
+    from sequencealigner_tpu_torch.tools.profile_main import proteins
 
     nuc = matrices.get("nuc44")
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -461,6 +519,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from sequencealigner_tpu_torch import matrices
     from sequencealigner_tpu_torch.ops import cuda_dp
+    from sequencealigner_tpu_torch.tools.profile_main import proteins
 
     dev = torch.device("cuda", 0)
     card = smi()
@@ -487,17 +546,20 @@ def main() -> int:
     launches["align_grid"] = grid_launches["align_grid"]
     phase_f(dev, M, main_set, tiles_mat, card)
     phase_g(rng, dev, card)
-    # ms / plain_ms: GA at (b)'s multi-band 160 shape, the grid kernel at
-    # (e)'s 80 x 70 shape.
-    shape_times = {name: times[(name, "multi-band 160")]
-                   for name in ("align_tiles", "align_pairs")}
-    shape_times["align_grid"] = grid_times
+    # ms / plain_ms / bound_ms: GA at (b)'s multi-tile shape (one launch as
+    # the engine sends a combo) for the tile kernel, at (b)'s multi-band 160
+    # shape for the per-pair kernel and at (e)'s 80 x 70 shape for the grid
+    # kernel.  No PyTorch call computes an alignment score: library_ms null.
+    shape_times = {"align_tiles": times[("align_tiles", "multi-tile 512x320")],
+                   "align_pairs": times[("align_pairs", "multi-band 160")],
+                   "align_grid": grid_times}
     kernels = []
-    for name, (t_k, t_p) in shape_times.items():
+    for name, (t_k, t_p, b, by) in shape_times.items():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err[name], "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b, "bound_by": by, "library_ms": None,
         })
     log(json.dumps({"kernels": kernels}))
     log(smi())

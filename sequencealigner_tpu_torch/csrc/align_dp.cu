@@ -12,33 +12,55 @@
 // bit-exact to the reference recurrences (ops/oracle.py); the plain PyTorch
 // versions with the same contracts are in ops/torch_dp.py.
 //
-// What bounds them on the card: integer max-plus work.  A DP cell is about
-// eight int32 add/max operations and one shared-memory substitution lookup,
-// with no reuse a tensor core could exploit; device-memory traffic is one
-// code byte per row per band, one code word per four columns, and the band
-// crossing stream below.  The design keeps the DP out of device memory:
+// What bounds them on the card: instruction issue and the ALU pipe.  A DP
+// cell is integer max-plus work with no reuse a tensor core could exploit:
+// the fewest instructions per cell are NW 3 (the diagonal add, two
+// add+max), GA 6 (three adds, two add+max, one three-way max) and SW 6.5
+// (GA's with the zero floor folded in, and one three-way max of the running
+// best per two cells).  The DPX and min/max ones run on the ALU pipe at 64
+// a clock per SM, the adds can issue beside them on the FMA pipe, and an SM
+// issues 128 a clock (tools/dpx_rate.py measures the rates on the card);
+// each lookup of the substitution score is a shared-memory load beside
+// them.  Device-memory traffic is one code byte per row per band, one code
+// word per four columns and the band crossing stream below.  The design
+// keeps the DP out of device memory:
 //   - one thread scores one pair; a block is 128 pairs.  In the tile kernel
 //     the block is the 128 k-lanes of one (tile, c-row), so the c-row's
 //     codes are a warp-wide broadcast and kmatT rows load coalesced;
 //   - a band of KB = 32 DP rows (H, and X for the affine algorithms) lives
 //     in registers while the thread sweeps the columns left to right; the
-//     vertical gap (Y) is a scalar carried down the band;
+//     vertical gap (Y) is a scalar carried down the band.  One column of a
+//     band (dp_column) is the same code in every kernel: h = max(diag, x,
+//     y) is one DPX instruction (__vimax3_s32, and __vimax3_s32_relu for
+//     SW's zero floor), max(a + b, c) another (__viaddmax_s32);
 //   - the band's bottom row (H, and Y for GA/SW) reaches the next band
-//     through a scratch stream in device memory laid out [column][lane], so
-//     the 128 threads of a block touch 512 consecutive bytes per column; it
-//     is updated in place (column c is read just before it is rewritten),
-//     so a block needs one row of columns per stream, reused across items;
+//     through a scratch stream in device memory, updated in place (a column
+//     is read before it is rewritten, by the same thread), so a block needs
+//     one row of columns per stream, reused across its items.  It is laid
+//     out [column / 4][lane][4], so that one 16-byte load brings a thread
+//     four columns and the next group's load is issued a group ahead, off
+//     the column's critical path;
 //   - the substitution matrix lives in shared memory as int32, transposed so
 //     one column's lookups index a single 25-entry row, chosen once per
-//     column (CodeScore); grid mode instead reads its int8 grid laid out
+//     column from the column's letter (CodeScore: in tile mode the block's
+//     c-row code word, one per four columns; in per-pair mode the pair's own
+//     code bytes); grid mode instead reads its int8 grid laid out
 //     [s][column][row][lane], so a warp's reads of one cell are 32
-//     consecutive bytes (GridScore).  The sweep itself (dp_pair) is one
-//     piece of code for all three, templated on the score source;
+//     consecutive bytes (GridScore);
 //   - a thread stops at its own pair's lengths, so pad rows, pad columns and
-//     dummy descriptor rows cost nothing, and max(a + b, c) maps onto the
-//     Hopper DPX instruction __viaddmax_s32.
-// Blocks loop over work items (a grid no larger than the scratch the wrapper
-// allocated), launch on the caller's stream, allocate nothing and do not
+//     dummy descriptor rows cost nothing.
+// All three kernels run one sweep (dp_sweep, sweep_band), parameterised by
+// the score source: columns in groups of four, the last band split from the
+// full ones, so that only there SW tests which rows lie past l2.  The tile
+// kernel's grid is persistent: SMs x resident blocks
+// (align_dp_tiles_resident, the occupancy query), each taking (tile, c-row)
+// items from a device counter, longest c-rows of the launch first, so
+// uneven lengths balance and a launch ends with one short tail; the wrapper
+// zeroes the counter on the launch's stream.  At 167 registers (GA, SW)
+// three tile blocks fit an SM (NW, at 128, four); a fourth would need 128
+// registers, which with __launch_bounds__(128, 4) spill and measured
+// slower.  The per-pair and grid kernels stride over their items.  All
+// kernels launch on the caller's stream, allocate nothing and do not
 // synchronise.
 
 #include <cstdint>
@@ -67,129 +89,225 @@ __device__ __forceinline__ int border(int k, int gap, int opn, int slope) {
   return 0;
 }
 
-// Score sources of dp_pair: band(r0, l2) is called once per band of KB DP
-// rows (rows r0+1 .. r0+KB), column(c) once per column c (1-based), and
+// Score sources of the sweep: band(r0, l2) is called once per band of KB
+// DP rows (rows r0+1 .. r0+KB), group(g) once per group of four columns
+// (4g+1 .. 4g+4), column(j) once per swept column 4g+j+1 of that group, and
 // at(i) gives the substitution score of band row i in that column.
 
 // From letter codes and the substitution matrix in shared memory (tile and
 // per-pair modes): subT[c * ALPHA + k] = sub[k][c].  The band's row letters
-// stay in registers; the column's letter picks its subT row once per column.
-template <class CCode, class KCode>
+// are byte offsets into a subT row, four to a register; cword(g) gives the
+// letters of a group's four columns, a byte each (in tile mode the block's
+// c-row code word, in per-pair mode this pair's own code bytes), and
+// column(j) sets the shared-window address of the subT row of column j's
+// letter.  That address is kept opaque, so that the compiler does not fold
+// the row into every lookup's address arithmetic; as built for sm_90a a
+// tile-mode lookup is then one LDS [R + UR] and nothing else.
+template <class KCode, class CWord>
 struct CodeScore {
-  CCode ccode;
   KCode kcode;
-  const int* subT;
-  int kc[KB];
-  const int* srow;
+  CWord cword;
+  unsigned subT;  // shared-window address of subT
+  unsigned kw[KB / 4];
+  unsigned word = 0;
+  unsigned srow = 0;
 
   __device__ __forceinline__ void band(int r0, int l2) {
 #pragma unroll
-    for (int i = 0; i < KB; ++i) kc[i] = r0 + i < l2 ? kcode(r0 + i) : PAD;
+    for (int w = 0; w < KB / 4; ++w) {
+      unsigned x = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 4 * w + j;
+        const int code = r0 + i < l2 ? kcode(r0 + i) : PAD;
+        x |= (unsigned)(code * (int)sizeof(int)) << (8 * j);
+      }
+      kw[w] = x;
+    }
   }
-  __device__ __forceinline__ void column(int c) {
-    srow = subT + ccode(c - 1) * ALPHA;
+  __device__ __forceinline__ void group(int g) { word = cword(g); }
+  __device__ __forceinline__ void column(int j) {
+    srow = subT + ((word >> (8 * j)) & 0xFF) * ALPHA * (unsigned)sizeof(int);
+    asm("" : "+r"(srow));
   }
-  __device__ __forceinline__ int at(int i) const { return srow[kc[i]]; }
+  __device__ __forceinline__ int at(int i) const {
+    int v;
+    asm("ld.shared.b32 %0, [%1];"
+        : "=r"(v)
+        : "r"(srow + __byte_perm(kw[i >> 2], 0, 0x4440 | (i & 3))));
+    return v;
+  }
 };
 
-template <class CCode, class KCode>
-__device__ __forceinline__ CodeScore<CCode, KCode> code_score(
-    CCode ccode, KCode kcode, const int* subT) {
-  return CodeScore<CCode, KCode>{ccode, kcode, subT, {}, nullptr};
+template <class KCode, class CWord>
+__device__ __forceinline__ CodeScore<KCode, CWord> code_score(
+    KCode kcode, CWord cword, const int* subT) {
+  return CodeScore<KCode, CWord>{
+      kcode, cword, (unsigned)__cvta_generic_to_shared(subT), {}};
 }
 
 // From a prebuilt int8 grid (grid mode).  lane points at this pair's byte
 // of (column 0, row 0); columns are col_stride bytes apart, rows B.  Rows
 // at or beyond the pair's l2 are never read (their score is 0 and reaches
-// no result), so the grid's PAD_MARK cells cannot affect a score.
+// no result), so the grid's PAD_MARK cells cannot affect a score.  Each
+// column's 32 lookups are global loads; with a group's four columns
+// unrolled they cost grid mode about twice its own per-column loop's time
+// (PERF.md), and no engine path runs it.
 struct GridScore {
   const int8_t* lane;
   size_t col_stride;  // Kpad * B
   int row_stride;     // B
-  int r0 = 0, nrows = 0;
+  int r0 = 0, nrows = 0, c0 = 0;
   const int8_t* col = nullptr;
 
   __device__ __forceinline__ void band(int r0_, int l2) {
     r0 = r0_;
     nrows = l2 - r0_;
   }
-  __device__ __forceinline__ void column(int c) {
-    col = lane + (size_t)(c - 1) * col_stride + (size_t)r0 * row_stride;
+  __device__ __forceinline__ void group(int g) { c0 = 4 * g; }
+  __device__ __forceinline__ void column(int j) {
+    col = lane + (size_t)(c0 + j) * col_stride + (size_t)r0 * row_stride;
   }
   __device__ __forceinline__ int at(int i) const {
     return i < nrows ? (int)__ldg(col + i * row_stride) : 0;
   }
 };
 
-// Score of one pair: l1 columns, l2 rows, substitution scores from sc.
-// hs / ys: this lane's band crossing streams, element stride LANES.  A pair
-// with a zero length scores 0, as in the reference kernels.
-template <int ALGO, class Score>
-__device__ __forceinline__ int dp_pair(int l1, int l2, Score& sc, int gap, int opn, int ext,
-                       int* __restrict__ hs, int* __restrict__ ys) {
-  if (l1 <= 0 || l2 <= 0) return 0;
-  const int slope = ALGO == NW ? gap : max(opn, ext);
-  int best = 0;    // SW: running max over valid cells
-  int result = 0;  // NW/GA: H[l2][l1]
-  const int nbands = (l2 + KB - 1) / KB;
-  for (int band = 0; band < nbands; ++band) {
-    const int r0 = band * KB;  // this band holds DP rows r0+1 .. r0+KB
-    const bool last = band == nbands - 1;
-    int H[KB], X[KB];
-    sc.band(r0, l2);
+// One DP column of a band: rows r0+1 .. r0+KB of column c.  On entry H and
+// X hold column c-1, d = H[r0][c-1], hu = H[r0][c] and y = Y[r0][c]; on exit
+// H and X hold column c and y = Y[r0+KB][c].  SW keeps the running maximum
+// in best; with TAIL, rows at or past nrows = l2 - r0 may lie in the band
+// and do not count.  h = max(diag, x, y) is one DPX instruction (with SW's
+// zero floor folded in).
+template <int ALGO, bool TAIL, class Score>
+__device__ __forceinline__ void dp_column(int (&H)[KB], int (&X)[KB], int d,
+                                          int hu, int& y, const Score& sc,
+                                          int gap, int opn, int ext,
+                                          int& best, int nrows) {
 #pragma unroll
-    for (int i = 0; i < KB; ++i) {
-      H[i] = border<ALGO>(r0 + i + 1, gap, opn, slope);  // column 0
-      X[i] = SCORE_MIN;
-    }
-    int diag_top = border<ALGO>(r0, gap, opn, slope);  // H[r0][c-1]
-    for (int c = 1; c <= l1; ++c) {
-      int up_h, up_y;  // H[r0][c], Y[r0][c]
-      if (band == 0) {
-        up_h = border<ALGO>(c, gap, opn, slope);
-        up_y = SCORE_MIN;
+  for (int i = 0; i < KB; ++i) {
+    const int left = H[i];
+    const int dm = d + sc.at(i);
+    int h;
+    if (ALGO == NW) {
+      h = addmax(left, gap, addmax(hu, gap, dm));
+    } else {
+      const int x = addmax(left, opn, X[i] + ext);
+      y = addmax(hu, opn, y + ext);
+      if (ALGO == SW) {
+        h = __vimax3_s32_relu(dm, x, y);
+        if (!TAIL || i < nrows) best = max(best, h);
       } else {
-        up_h = hs[(c - 1) * LANES];
-        up_y = ys[(c - 1) * LANES];
+        h = __vimax3_s32(dm, x, y);
       }
-      sc.column(c);
-      int d = diag_top;
-      diag_top = up_h;
-      int hu = up_h, y = up_y;
-#pragma unroll
-      for (int i = 0; i < KB; ++i) {
-        const int left = H[i];
-        const int dm = d + sc.at(i);
-        int h;
-        if (ALGO == NW) {
-          h = addmax(left, gap, addmax(hu, gap, dm));
-        } else {
-          const int x = addmax(left, opn, X[i] + ext);
-          y = addmax(hu, opn, y + ext);
-          h = max(dm, max(x, y));
-          if (ALGO == SW) {
-            h = max(h, 0);
-            if (r0 + i < l2) best = max(best, h);
-          }
-          X[i] = x;
-        }
-        d = left;
-        H[i] = h;
-        hu = h;
-      }
-      if (!last) {
-        hs[(c - 1) * LANES] = H[KB - 1];
-        if (ALGO != NW) ys[(c - 1) * LANES] = y;
-      }
+      X[i] = x;
     }
-    if (ALGO != SW && last) {
-      const int idx = l2 - 1 - r0;
+    d = left;
+    H[i] = h;
+    hu = h;
+  }
+}
+
+template <int ALGO>
+__device__ __forceinline__ void band_start(int r0, int gap, int opn,
+                                           int slope, int (&H)[KB],
+                                           int (&X)[KB]) {
 #pragma unroll
-      for (int i = 0; i < KB; ++i)
-        if (i == idx) result = H[i];
+  for (int i = 0; i < KB; ++i) {
+    H[i] = border<ALGO>(r0 + i + 1, gap, opn, slope);  // column 0
+    X[i] = SCORE_MIN;
+  }
+}
+
+// H[l2][l1] from the last band's column l1 (NW/GA).
+__device__ __forceinline__ int band_row(const int (&H)[KB], int idx) {
+  int r = 0;
+#pragma unroll
+  for (int i = 0; i < KB; ++i)
+    if (i == idx) r = H[i];
+  return r;
+}
+
+// One band of the sweep (see dp_sweep): DP rows r0+1 .. r0+KB, columns
+// 1 .. l1 in groups of four.  hs / ys: this lane's crossing streams as int4
+// groups of four columns, element stride LANES; the next group is loaded
+// while this one is swept, and a group is rewritten only after it was read.
+// top: the first band (its row r0 is the border); last: no band follows, so
+// nothing is written.
+template <int ALGO, bool TAIL, class Score>
+__device__ __forceinline__ void sweep_band(int l1, int r0, int nrows,
+                                           bool top, bool last, Score& sc,
+                                           int gap, int opn, int ext,
+                                           int slope, int (&H)[KB],
+                                           int& best,
+                                           int4* __restrict__ hs,
+                                           int4* __restrict__ ys) {
+  int X[KB];
+  band_start<ALGO>(r0, gap, opn, slope, H, X);
+  int diag_top = border<ALGO>(r0, gap, opn, slope);  // H[r0][c-1]
+  int4 hn = make_int4(0, 0, 0, 0), yn = hn;  // H, Y of row r0, next group
+  if (!top) {
+    hn = hs[0];
+    if (ALGO != NW) yn = ys[0];
+  }
+  for (int g = 0; 4 * g < l1; ++g) {
+    sc.group(g);
+    int4 hv = hn, yv = yn;
+    if (!top && 4 * (g + 1) < l1) {
+      hn = hs[(g + 1) * LANES];
+      if (ALGO != NW) yn = ys[(g + 1) * LANES];
+    }
+    // Column j of the group takes its row-r0 values from .x and leaves the
+    // band's bottom row in .w, so after four steps hv, yv are in order.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 4 * g + j + 1;
+      int bottom = 0, y = SCORE_MIN;
+      if (c <= l1) {  // in tile mode l1 is the block's: a uniform branch
+        const int up_h = top ? border<ALGO>(c, gap, opn, slope) : hv.x;
+        if (!top) y = yv.x;  // Y[r0][c]
+        sc.column(j);
+        dp_column<ALGO, TAIL>(H, X, diag_top, up_h, y, sc, gap, opn, ext,
+                              best, nrows);
+        diag_top = up_h;
+        bottom = H[KB - 1];
+      }
+      hv = make_int4(hv.y, hv.z, hv.w, bottom);
+      yv = make_int4(yv.y, yv.z, yv.w, y);
+    }
+    if (!last) {
+      hs[g * LANES] = hv;
+      if (ALGO != NW) ys[g * LANES] = yv;
     }
   }
-  return ALGO == SW ? best : result;
+}
+
+// Score of one pair: l1 columns, l2 rows, substitution scores from sc; the
+// one sweep of every kernel.  A pair with a zero length scores 0, as in the
+// reference kernels.  The last band is split from the full ones, so that
+// only there SW tests which rows lie past l2.
+template <int ALGO, class Score>
+__device__ __forceinline__ int dp_sweep(int l1, int l2, Score& sc, int gap,
+                                        int opn, int ext,
+                                        int4* __restrict__ hs,
+                                        int4* __restrict__ ys) {
+  if (l1 <= 0 || l2 <= 0) return 0;
+  const int slope = ALGO == NW ? gap : max(opn, ext);
+  int best = 0;
+  int H[KB];
+  const int nbands = (l2 + KB - 1) / KB;
+  for (int band = 0; band < nbands; ++band) {
+    const int r0 = band * KB;
+    const bool last = band == nbands - 1;
+    sc.band(r0, l2);
+    if (ALGO == SW && last)
+      sweep_band<ALGO, true>(l1, r0, l2 - r0, band == 0, true, sc, gap, opn,
+                             ext, slope, H, best, hs, ys);
+    else
+      sweep_band<ALGO, false>(l1, r0, l2 - r0, band == 0, last, sc, gap, opn,
+                              ext, slope, H, best, hs, ys);
+  }
+  return ALGO == SW ? best : band_row(H, l2 - 1 - (nbands - 1) * KB);
 }
 
 __device__ __forceinline__ void load_subT(const int* __restrict__ sub,
@@ -197,6 +315,15 @@ __device__ __forceinline__ void load_subT(const int* __restrict__ sub,
   for (int i = threadIdx.x; i < ALPHA * ALPHA; i += blockDim.x)
     subT[(i % ALPHA) * ALPHA + i / ALPHA] = sub[i];
   __syncthreads();
+}
+
+// This block's and lane's band-crossing stream of H (Y follows it): laid
+// out [column / 4][lane][4] (wmax % 4 == 0), so that a warp's 16-byte loads
+// of one group of columns are 512 contiguous bytes.
+__device__ __forceinline__ int4* crossing(int* scratch, int wmax) {
+  return reinterpret_cast<int4*>(scratch +
+                                 (size_t)blockIdx.x * 2 * wmax * LANES) +
+         threadIdx.x;
 }
 
 // Tile mode: item = (tile t, c-row s); lane = k-lane of the tile.
@@ -207,27 +334,34 @@ tiles_kernel(const int* __restrict__ desc, int T,
              const int8_t* __restrict__ kmatT, int kcols,
              const int* __restrict__ klens, const int* __restrict__ sub,
              const int* __restrict__ gaps, int* __restrict__ out,
-             int* __restrict__ scratch, int wmax) {
+             int* __restrict__ scratch, int wmax, int* __restrict__ next) {
   __shared__ int subT[ALPHA * ALPHA];
+  __shared__ int claimed[2];
   load_subT(sub, subT);
   const int gap = gaps[0], opn = gaps[1], ext = gaps[2];
   const int lane = threadIdx.x;
-  int* hs = scratch + (size_t)blockIdx.x * 2 * wmax * LANES + lane;
-  int* ys = hs + (size_t)wmax * LANES;
+  int4* hs = crossing(scratch, wmax);
+  int4* ys = hs + (size_t)(wmax / 4) * LANES;
   const int items = T * S_TILE;
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+  // Items go longest first: the last tiles and rows of a combo have the
+  // longest c-rows.  Two slots for the claimed index, so that one barrier
+  // per item suffices: a slot is rewritten only after every thread has
+  // passed the barrier that follows its read.
+  for (int k = 0;; k ^= 1) {
+    if (lane == 0) claimed[k] = atomicAdd(next, 1);
+    __syncthreads();
+    const int item = items - 1 - claimed[k];
+    if (item < 0) break;
     const int t = item / S_TILE;
     const int crow = desc[2 * t] + item % S_TILE;
     const int kl = desc[2 * t + 1] * LANES + lane;
     const int* cw = cwords + (size_t)crow * cw_stride;
-    auto ccode = [cw](int w) {
-      return (__ldg(cw + 1 + (w >> 2)) >> ((w & 3) * 8)) & 0xFF;
-    };
     auto kcode = [kmatT, kcols, kl](int k) {
       return (int)kmatT[(size_t)k * kcols + kl];
     };
-    auto sc = code_score(ccode, kcode, subT);
-    out[(size_t)item * LANES + lane] = dp_pair<ALGO>(
+    auto cword = [cw](int g) { return (unsigned)__ldg(cw + 1 + g); };
+    auto sc = code_score(kcode, cword, subT);
+    out[(size_t)item * LANES + lane] = dp_sweep<ALGO>(
         __ldg(cw), klens[kl], sc, gap, opn, ext, hs, ys);
   }
 }
@@ -246,19 +380,27 @@ pairs_kernel(const int8_t* __restrict__ mat_c, int wc,
   load_subT(sub, subT);
   const int gap = gaps[0], opn = gaps[1], ext = gaps[2];
   const int lane = threadIdx.x;
-  int* hs = scratch + (size_t)blockIdx.x * 2 * wmax * LANES + lane;
-  int* ys = hs + (size_t)wmax * LANES;
+  int4* hs = crossing(scratch, wmax);
+  int4* ys = hs + (size_t)(wmax / 4) * LANES;
   const int items = (n + LANES - 1) / LANES;
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int p = item * LANES + lane;
     if (p >= n) continue;
     const int8_t* cs = mat_c + (size_t)rc[p] * wc;
     const int8_t* ks = mat_k + (size_t)rk[p] * wk;
-    auto ccode = [cs](int w) { return (int)cs[w]; };
+    const int l1 = lens_c[rc[p]];
     auto kcode = [ks](int k) { return (int)ks[k]; };
-    auto sc = code_score(ccode, kcode, subT);
-    out[p] = dp_pair<ALGO>(lens_c[rc[p]], lens_k[rk[p]], sc, gap, opn, ext,
-                           hs, ys);
+    // This pair's four column letters of group g (none past l1, so no read
+    // leaves the row).
+    auto cword = [cs, l1](int g) {
+      unsigned w = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * g + j < l1) w |= (unsigned)(uint8_t)cs[4 * g + j] << (8 * j);
+      return w;
+    };
+    auto sc = code_score(kcode, cword, subT);
+    out[p] = dp_sweep<ALGO>(l1, lens_k[rk[p]], sc, gap, opn, ext, hs, ys);
   }
 }
 
@@ -274,8 +416,8 @@ grid_kernel(const int8_t* __restrict__ sk, int S, int W, int Kpad, int B,
             int* __restrict__ scratch, int wmax) {
   const int gap = gaps[0], opn = gaps[1], ext = gaps[2];
   const int lane = threadIdx.x;
-  int* hs = scratch + (size_t)blockIdx.x * 2 * wmax * LANES + lane;
-  int* ys = hs + (size_t)wmax * LANES;
+  int4* hs = crossing(scratch, wmax);
+  int4* ys = hs + (size_t)(wmax / 4) * LANES;
   const int chunks = (B + LANES - 1) / LANES;
   const int items = S * chunks;
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
@@ -284,8 +426,8 @@ grid_kernel(const int8_t* __restrict__ sk, int S, int W, int Kpad, int B,
     if (b >= B) continue;
     const size_t p = (size_t)s * B + b;
     GridScore sc{sk + (size_t)s * W * Kpad * B + b, (size_t)Kpad * B, B};
-    out[p] = dp_pair<ALGO>(min(l1[p], W), min(l2[p], Kpad), sc, gap, opn,
-                           ext, hs, ys);
+    out[p] = dp_sweep<ALGO>(min(l1[p], W), min(l2[p], Kpad), sc, gap, opn,
+                            ext, hs, ys);
   }
 }
 
@@ -296,28 +438,47 @@ extern "C" {
 int align_dp_tiles(const int* desc, int T, const int* cwords, int cw_stride,
                    const int8_t* kmatT, int kcols, const int* klens,
                    const int* sub, const int* gaps, int algo, int* out,
-                   int* scratch, int wmax, int grid, void* stream) {
+                   int* scratch, int wmax, int* next, int grid,
+                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (algo) {
     case NW:
       tiles_kernel<NW><<<grid, LANES, 0, st>>>(desc, T, cwords, cw_stride,
                                                kmatT, kcols, klens, sub, gaps,
-                                               out, scratch, wmax);
+                                               out, scratch, wmax, next);
       break;
     case GA:
       tiles_kernel<GA><<<grid, LANES, 0, st>>>(desc, T, cwords, cw_stride,
                                                kmatT, kcols, klens, sub, gaps,
-                                               out, scratch, wmax);
+                                               out, scratch, wmax, next);
       break;
     case SW:
       tiles_kernel<SW><<<grid, LANES, 0, st>>>(desc, T, cwords, cw_stride,
                                                kmatT, kcols, klens, sub, gaps,
-                                               out, scratch, wmax);
+                                               out, scratch, wmax, next);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of tiles_kernel<algo> (the persistent grid is SMs
+// times this).
+int align_dp_tiles_resident(int algo, int* blocks) {
+  switch (algo) {
+    case NW:
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, tiles_kernel<NW>, LANES, 0);
+    case GA:
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, tiles_kernel<GA>, LANES, 0);
+    case SW:
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, tiles_kernel<SW>, LANES, 0);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 int align_dp_pairs(const int8_t* mat_c, int wc, const int8_t* mat_k, int wk,

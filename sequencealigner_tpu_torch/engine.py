@@ -237,6 +237,18 @@ class Engine:
         with self._plock:
             pending.append([host, event, part, False])
 
+    def _tile_group(self, Lc: int, Lk: int, ntiles: int) -> int:
+        """Tiles per tile-kernel launch for a combo of ``ntiles`` tiles.  On
+        the card, as few launches as the flush cap allows, so each one keeps
+        every SM busy (cuda_dp.tiles_per_launch); on the CPU the plain
+        version holds a whole launch in memory, so the reference's
+        geometry.pick_T groups them.  Launch grouping changes no block, id
+        or schedule token."""
+        if self._cuda:
+            return cuda_dp.tiles_per_launch(ntiles,
+                                            FLUSH_PAIRS // (TILE_S * TILE_B))
+        return geometry.pick_T(Lc, Lk)
+
     def _dispatch_tiles(self, blks: list, ctx: tuple, pending: list) -> None:
         """One tile-kernel launch for a group of tiles: the only upload is
         the (T, 2) int32 descriptor array."""
@@ -410,10 +422,14 @@ class Engine:
         def reached() -> bool:
             return limit_pairs is not None and scheduled >= limit_pairs
 
-        def stream(blocks, dispatch, group_max: int = 0) -> None:
+        def stream(blocks, dispatch, group_max: int = 0,
+                   whole: bool = False) -> None:
             """Send one combo's blocks to ``dispatch`` in groups of equal
             width (at most group_max blocks, 0 for no cap), pacing flushes;
-            stops once limit_pairs is reached."""
+            stops once limit_pairs is reached.  With ``whole`` (the tile
+            stream, whose launches are sized to fill the card), a group
+            that would cross FLUSH_PAIRS flushes before it starts, so the
+            flush bound never cuts that launch short."""
             nonlocal inflight, scheduled
             group: list = []
 
@@ -426,6 +442,9 @@ class Engine:
             for blk in blocks:
                 if group and blk.width != group[0].width:
                     send()
+                if (whole and not group and inflight
+                        and inflight + group_max * blk.width > FLUSH_PAIRS):
+                    flush()
                 inflight += blk.width
                 scheduled += blk.n_valid
                 group.append(blk)
@@ -466,9 +485,10 @@ class Engine:
                 )
                 continue
             tctx = (outer_c[0], outer_k[1], outer_k[2], Lc, Lk)
-            stream(sched.tiles(a, b),
+            tiles_ab = list(sched.tiles(a, b))
+            stream(tiles_ab,
                    lambda g: self._dispatch_tiles(g, tctx, pending),
-                   geometry.pick_T(Lc, Lk))
+                   self._tile_group(Lc, Lk, len(tiles_ab)), whole=True)
             if a != b or reached():
                 continue
             # Diagonal remainder: the per-window triangles excluded from

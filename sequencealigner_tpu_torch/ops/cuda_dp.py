@@ -11,6 +11,20 @@ check devices, dtypes, shapes and contiguity; the row indices inside
 them from the schedule), since reading them back would synchronise the
 stream.
 
+Grid and scratch: ``align_tiles`` launches a persistent grid of SMs x the
+tile kernel's resident blocks per SM (``tiles_resident``, the CUDA
+occupancy query for its registers), whose blocks take (tile, c-row) items
+from a device counter that the wrapper zeroes on the launch's stream;
+``align_pairs`` and ``align_grid`` launch up to ``BLOCKS_PER_SM`` blocks per
+SM that stride over their items.  Either way the grid is capped by the
+items, and each block owns one band-crossing scratch row of two int32
+streams x the widest column count (rounded up to a group of four, the
+kernels' [column / 4][lane][4] layout) x 128 lanes, so the scratch is sized by
+the grid (at most ``SCRATCH_BYTES`` unless one block per SM needs more),
+never by the pair count.  The engine sends a combo's tiles in as few
+launches as the flush cap allows (``tiles_per_launch``), so that each
+launch keeps every resident block busy.
+
 The kernels are compiled on the first CUDA call, from the package's own
 ``csrc/*.cu`` only, with nvcc into a shared library with a plain C interface
 (no PyTorch headers: the build takes seconds).  The library lands in
@@ -48,13 +62,15 @@ KB = 32
 #: an edge of about 500,000 columns is the most an 80 GB card admits (the
 #: kernels have no W_MAX; lengths and in-band offsets are int32).
 SCRATCH_BYTES = 2 << 30
-#: Resident blocks per SM the grid is sized for.
+#: Blocks per SM the per-pair and grid kernels' grids are sized for (the
+#: tile kernel's grid is sized by its occupancy instead: tiles_resident).
 BLOCKS_PER_SM = 8
 
 ALGO_ID = {"nw": 0, "ga": 1, "sw": 2}
 
 _lib = None
 _lock = threading.Lock()
+_resident: dict = {}  # (device index, algo) -> tile-kernel blocks per SM
 #: Seconds the last build took (0.0 when the library was already built) and
 #: nvcc's register/spill report for it.
 build_seconds = 0.0
@@ -98,9 +114,11 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.align_dp_tiles.argtypes = [
-            p, i, p, i, p, i, p, p, p, i, p, p, i, i, p,
+            p, i, p, i, p, i, p, p, p, i, p, p, i, p, i, p,
         ]
         lib.align_dp_tiles.restype = i
+        lib.align_dp_tiles_resident.argtypes = [i, p]
+        lib.align_dp_tiles_resident.restype = i
         lib.align_dp_pairs.argtypes = [
             p, i, p, i, p, p, p, p, i, p, p, i, p, p, i, i, p,
         ]
@@ -122,20 +140,50 @@ def _check(name: str, t: torch.Tensor, dtype, dev, ndim: int) -> None:
         raise ValueError(f"{name} must be a contiguous {ndim}-d tensor")
 
 
-def _grid_and_scratch(items: int, wmax: int, banded: bool, dev):
-    """Grid size (blocks loop over items) and the band-crossing scratch:
-    two int32 streams (H, Y) of wmax columns x LANE lanes per block.  The
-    wrapper drops its reference right after the launch: the caching
-    allocator hands the memory only to later work on the same stream."""
+def _grid_and_scratch(items: int, wmax: int, banded: bool, dev,
+                      per_sm: int = BLOCKS_PER_SM):
+    """Grid size (at most ``per_sm`` blocks per SM and one per item; blocks
+    loop over items), the band-crossing scratch and its column count: two
+    int32 streams (H, Y) of wmax columns, rounded up to a multiple of four,
+    x LANE lanes per block.  The wrapper drops its reference right after
+    the launch: the caching allocator hands the memory only to later work
+    on the same stream."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = min(items, sms * BLOCKS_PER_SM)
+    grid = min(items, sms * per_sm)
     if not banded:
         return grid, torch.empty(1, dtype=torch.int32, device=dev), 0
+    wmax = -(-wmax // 4) * 4
     per_block = 2 * wmax * LANE * 4
     grid = max(1, min(grid, max(sms, SCRATCH_BYTES // per_block)))
     scratch = torch.empty(grid * 2 * wmax * LANE, dtype=torch.int32,
                           device=dev)
     return grid, scratch, wmax
+
+
+def tiles_resident(algo: str) -> int:
+    """Resident blocks per SM of the tile kernel for ``algo`` (the CUDA
+    occupancy query for its registers and shared memory), on the current
+    device."""
+    key = (torch.cuda.current_device(), algo)
+    if key not in _resident:
+        lib = load_library()
+        n = ctypes.c_int(0)
+        _raise_on(lib, lib.align_dp_tiles_resident(ALGO_ID[algo],
+                                                   ctypes.byref(n)),
+                  "align_tiles occupancy query")
+        _resident[key] = max(1, n.value)
+    return _resident[key]
+
+
+def tiles_per_launch(ntiles: int, cap: int) -> int:
+    """Tiles per ``align_tiles`` launch for a combo of ``ntiles`` tiles: the
+    fewest launches of at most ``cap`` tiles, one group size for all of
+    them.  Blocks take items from a work counter, so any launch of at least
+    SMs x resident blocks items fills the card (a tile is 128 items: on an
+    H100, 3-5 tiles), and each launch ends with one tail in which the SMs
+    drain: fewer launches, fewer tails."""
+    n = max(1, -(-ntiles // max(1, cap)))
+    return max(1, -(-ntiles // n))
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -172,13 +220,16 @@ def align_tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo: str):
     wmax = (cwords.shape[1] - 1) * 4
     with torch.cuda.device(dev):
         grid, scratch, wmax = _grid_and_scratch(
-            T * S_TILE, wmax, kmatT.shape[0] > KB, dev
+            T * S_TILE, wmax, kmatT.shape[0] > KB, dev,
+            tiles_resident(algo),
         )
+        # The work counter, zeroed on the launch's stream.
+        nxt = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.align_dp_tiles(
             desc.data_ptr(), T, cwords.data_ptr(), cwords.shape[1],
             kmatT.data_ptr(), kmatT.shape[1], klens.data_ptr(),
             sub.data_ptr(), gaps.data_ptr(), ALGO_ID[algo], out.data_ptr(),
-            scratch.data_ptr(), wmax, grid,
+            scratch.data_ptr(), wmax, nxt.data_ptr(), grid,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "align_tiles")

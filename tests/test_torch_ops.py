@@ -230,7 +230,8 @@ def test_wrappers_route_cpu_tensors_to_plain():
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """Both CUDA kernels equal their plain versions on the card (multi-band
-    shapes, dummy descriptor rows); run on a machine with an NVIDIA GPU."""
+    shapes, dummy descriptor rows, and a multi-tile launch whose blocks
+    share the work counter); run on a machine with an NVIDIA GPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -239,15 +240,21 @@ def test_kernels_match_plain_on_card():
     kmat, klens = _bucket(rng, 150, 96)
     cw = geometry.pack_bucket_outer(cmat, clens, 160)[0]
     _, kT, kl = geometry.pack_bucket_outer(kmat, klens, 96)
-    desc = np.array([(0, 0), (128, 1), (cw.shape[0] - 128, 0)], np.int32)
+    dummy = cw.shape[0] - 128
+    descs = [
+        np.array([(0, 0), (128, 1), (dummy, 0)], np.int32),
+        np.array([(c0, kt) for kt in (1, 0) for c0 in (128, 0, 72)]
+                 + [(dummy, 1), (dummy, 0)], np.int32),
+    ]
     rc = rng.integers(0, 200, 1000).astype(np.int32)
     rk = rng.integers(0, 150, 1000).astype(np.int32)
     for algo, gaps in GAP_CASES:
         sub, g = port_engine.from_reference_inputs(M.matrix, gaps, dev)
-        args = [torch.from_numpy(a).to(dev) for a in (desc, cw, kT, kl)]
-        got = cuda_dp.align_tiles(*args, sub, g, algo=algo)
-        want = torch_dp.align_tiles_plain(*args, sub, g, algo=algo)
-        assert torch.equal(got, want), algo
+        for desc in descs:
+            args = [torch.from_numpy(a).to(dev) for a in (desc, cw, kT, kl)]
+            got = cuda_dp.align_tiles(*args, sub, g, algo=algo)
+            want = torch_dp.align_tiles_plain(*args, sub, g, algo=algo)
+            assert torch.equal(got, want), (algo, desc.shape[0])
         args = [torch.from_numpy(a).to(dev)
                 for a in (cmat, kmat, rc, rk, clens, klens)]
         got = cuda_dp.align_pairs(*args, sub, g, algo=algo)
