@@ -18,6 +18,13 @@ and no result line is printed.
       the tile kernel's work counter and persistent loop run; random
       lengths including 1 and the edge, dummy descriptor rows), exact
       equality, plus CUDA-event timings of both beside each call's bound;
+      then the per-pair kernel alone at shapes that, with those, launch
+      every lanes-per-pair G the layout rule can choose (cuda_dp.
+      pair_lanes: 1 to 32): 262,144 pairs of edge 64, 4,096 of edge 160,
+      2,048 of edge 512, and 64 and 512 pairs of lengths up to 3,000 among
+      which every pair of the stripe-boundary lengths l1 in {1, 3, 4, 5,
+      40} and l2 in {1, 31, 32, 33, 255, 256, 257, 1023, 1024, 1025}; each
+      logs its G;
   (c) the library align() on examples/peptides.fasta for NW/GA/SW against
       the NumPy oracle on every pair, and the seqalign-torch CLI (-W);
   (d) the main path at a size users run: 4096 proteins (lengths 50-500,
@@ -40,11 +47,14 @@ and no result line is printed.
       (d)'s tiles-v2 run and this linear-v1 run in turns under
       torch.profiler, twice: per kernel device ms, launches, bound and
       share of the bound (tools/profile_main), the tile kernel's device
-      time over linear-v1's per-pair kernel time, and the tile kernel's
-      registers and resident blocks per SM;
+      time over linear-v1's per-pair kernel time, and the registers and
+      resident blocks per SM of the tile kernel and of both forms (one
+      lane a pair, and G lanes a pair) of the per-pair kernel;
   (g) long and wide inputs through the linear-v1 route: 128 DNA sequences
       of 3,000-9,000 nt (NUC44, SW 10/1; buckets beyond W_MAX), 64 sampled
-      pairs against plain, plus align() and the CLI on three sequences over
+      pairs against plain, one more run under torch.profiler for the
+      per-pair kernel's device ms, its G, its bound and its share of the
+      bound, plus align() and the CLI on three sequences over
       4096 nt; and 512 proteins (lengths 50-500) under BLOSUM62 x 20 (GA
       10/1, |score| up to 220), 256 sampled pairs against plain; GCUPS of
       both.
@@ -125,14 +135,51 @@ def bound(cells: int, tensors, algo: str = "ga"):
     return (ops, "operations") if ops >= mem else (mem, "bytes")
 
 
+#: Stripe-boundary lengths of the per-pair kernel's split form: l2 (rows)
+#: at KB = 32 and G * KB +- 1, l1 (columns) around a group of four.
+BOUNDARY_L1 = (1, 3, 4, 5, 40)
+BOUNDARY_L2 = (1, 31, 32, 33, 255, 256, 257, 1023, 1024, 1025)
+
+
+def pair_lanes(n: int, edge_k: int, algo: str) -> int:
+    """The lanes per pair (G) align_pairs takes for n pairs whose k bucket
+    has ``edge_k`` rows, on this card."""
+    from sequencealigner_tpu_torch.ops import cuda_dp
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return cuda_dp.pair_lanes(n, edge_k, sms,
+                              cuda_dp.pairs_resident(algo, False))
+
+
+def long_pairs(rng, n, edge=3000):
+    """n pairs of lengths up to ``edge``: first every (l1, l2) pair of the
+    boundary lengths, then random rows."""
+    from sequencealigner_tpu_torch.ops.geometry import PAD
+
+    mats = []
+    for fixed in (BOUNDARY_L1, BOUNDARY_L2):
+        lens = rng.integers(1, edge + 1, max(n, len(fixed))).astype(np.int32)
+        lens[: len(fixed)] = fixed
+        mat = np.full((len(lens), edge), PAD, np.int8)
+        for i, ln in enumerate(lens):
+            mat[i, :ln] = rng.integers(0, 20, ln)
+        mats.append((mat, lens))
+    nb = len(BOUNDARY_L1) * len(BOUNDARY_L2)
+    rc = rng.integers(0, len(mats[0][1]), n).astype(np.int32)
+    rk = rng.integers(0, len(mats[1][1]), n).astype(np.int32)
+    rc[:nb] = np.repeat(np.arange(len(BOUNDARY_L1)), len(BOUNDARY_L2))
+    rk[:nb] = np.tile(np.arange(len(BOUNDARY_L2)), len(BOUNDARY_L1))
+    (cm, cl), (km, kl) = mats
+    return cm, km, rc, rk, cl, kl
+
+
 def phase_b(rng, dev, M):
-    """Kernel vs plain at the main path's shapes; returns the worst error
-    per kernel and, per (kernel, shape), the GA kernel and plain ms and the
-    call's bound."""
+    """Kernel vs plain at the main path's shapes, then the per-pair kernel
+    at shapes that launch every G; returns the worst error per kernel and,
+    per (kernel, shape), the GA kernel and plain ms and the call's bound."""
     from sequencealigner_tpu_torch import engine
     from sequencealigner_tpu_torch.ops import cuda_dp, geometry, torch_dp
     from sequencealigner_tpu_torch.scheduler import TRI_W
-    from sequencealigner_tpu_torch.tools.profile_kernels import cuda_ms
 
     shapes = [("single-band 64", 64, 64, 300, 200),
               ("multi-band 160", 160, 160, 300, 200),
@@ -141,6 +188,7 @@ def phase_b(rng, dev, M):
               ("multi-tile 512x320", 512, 320, 700, 400)]
     err = {"align_tiles": 0, "align_pairs": 0}
     times = {}
+    lanes_seen = set()
     for label, Lc, Lk, nc, nk in shapes:
         multi = label.startswith("multi-tile")
         cmat, clens = bucket(rng, nc, Lc, in_order=multi)
@@ -180,24 +228,66 @@ def phase_b(rng, dev, M):
                 ("align_pairs", cuda_dp.align_pairs,
                  torch_dp.align_pairs_plain, pargs),
             ):
-                got = kern(*args, sub, g, algo=algo)
-                torch.cuda.synchronize()
-                want = plain(*args, sub, g, algo=algo)
-                e = int((got.long() - want.long()).abs().max())
-                err[name] = max(err[name], e)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{name} {algo} {label}: max err {e}")
-                if algo == "ga":
-                    t_k = cuda_ms(lambda: kern(*args, sub, g, algo=algo), 10)
-                    t_p = cuda_ms(lambda: plain(*args, sub, g, algo=algo), 2)
-                    b, by = bound(cells[name], [*args, sub, g, got])
-                    times[(name, label)] = (t_k, t_p, b, by)
-                    log(f"(b) {name:11s} {label:18s} GA  kernel {t_k:.4f} ms"
-                        f"  plain {t_p:.4f} ms  bound {b:.4f} ms ({by}, "
-                        f"{cells[name]} cells)  share {b / t_k:.3f}")
+                G = (pair_lanes(rc.shape[0], mk.shape[1], algo)
+                     if name == "align_pairs" else None)
+                check_call(name, kern, plain, args, sub, g, algo, label,
+                           cells[name], err, times, G)
+                if G:
+                    lanes_seen.add(G)
             log(f"(b) {label:18s} {algo}: both kernels == plain (exact), "
                 f"{len(desc)} tiles in one align_tiles launch")
+    lone = [("G=1 262144x64", 262144, 64), ("4096x160", 4096, 160),
+            ("2048x512", 2048, 512),
+            ("64 up to 3000", 64, None), ("512 up to 3000", 512, None)]
+    for label, n, edge in lone:
+        if edge is None:
+            arrays = long_pairs(rng, n)
+        else:
+            cmat, clens = bucket(rng, 600, edge)
+            kmat, klens = bucket(rng, 500, edge)
+            arrays = (cmat, kmat, rng.integers(0, 600, n).astype(np.int32),
+                      rng.integers(0, 500, n).astype(np.int32), clens, klens)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        cells = int((args[4][args[2].long()].long()
+                     * args[5][args[3].long()].long()).sum())
+        for algo, gaps in ALGO_GAPS:
+            sub, g = engine.from_reference_inputs(M.matrix, gaps, dev)
+            G = pair_lanes(n, args[1].shape[1], algo)
+            lanes_seen.add(G)
+            check_call("align_pairs", cuda_dp.align_pairs,
+                       torch_dp.align_pairs_plain, args, sub, g, algo, label,
+                       cells, err, times, G)
+            log(f"(b) align_pairs {label:18s} {algo}: G={G}, == plain (exact)")
+    want = {1 << k for k in range(6)}
+    if lanes_seen != want:
+        raise AssertionError(f"(b) lanes per pair launched {lanes_seen}, "
+                             f"not {want}")
+    log(f"(b) align_pairs launched every lanes per pair G in {sorted(want)}")
     return err, times
+
+
+def check_call(name, kern, plain, args, sub, g, algo, label, cells, err,
+               times, G=None):
+    """One kernel call against its plain version, exact; for GA also the
+    CUDA-event ms of both beside the call's bound."""
+    from sequencealigner_tpu_torch.tools.profile_kernels import cuda_ms
+
+    got = kern(*args, sub, g, algo=algo)
+    torch.cuda.synchronize()
+    want = plain(*args, sub, g, algo=algo)
+    e = int((got.long() - want.long()).abs().max())
+    err[name] = max(err[name], e)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} {algo} {label}: max err {e}")
+    if algo == "ga":
+        t_k = cuda_ms(lambda: kern(*args, sub, g, algo=algo), 10)
+        t_p = cuda_ms(lambda: plain(*args, sub, g, algo=algo), 2)
+        b, by = bound(cells, [*args, sub, g, got])
+        times[(name, label)] = (t_k, t_p, b, by)
+        lanes = f"G={G} " if G else ""
+        log(f"(b) {name:11s} {label:18s} GA  {lanes}kernel {t_k:.4f} ms"
+            f"  plain {t_p:.4f} ms  bound {b:.4f} ms ({by}, {cells} cells)"
+            f"  share {b / t_k:.3f}")
 
 
 def phase_c(dev, M):
@@ -432,10 +522,9 @@ def phase_f(dev, M, raw, tiles_mat, card):
     """linear-v1 on the main set; then both schedules in turns, twice, each
     once under the profiler (per kernel device ms, launches, bound and
     share) and once not (wall time); and the registers and resident blocks
-    per SM of the tile kernel."""
+    per SM of the tile kernel and of both forms of the per-pair kernel."""
     from sequencealigner_tpu_torch import engine
     from sequencealigner_tpu_torch.io.input import SequenceSet
-    from sequencealigner_tpu_torch.ops import cuda_dp
     from sequencealigner_tpu_torch.tools import profile_main
 
     eng = profile_main.linear_engine("ga", M.matrix, (0, -10, -1), dev)
@@ -443,11 +532,8 @@ def phase_f(dev, M, raw, tiles_mat, card):
     if not np.array_equal(mat, tiles_mat):
         raise AssertionError("(f) linear-v1 matrix != tiles-v2 matrix")
     log("(f) linear-v1 matrix == tiles-v2 matrix, element for element")
-    regs = profile_main.tile_registers()
-    log("(d) tiles_kernel registers per thread " + ", ".join(
-        f"{a} {regs.get(a)}" for a in ("nw", "ga", "sw")) + "; resident "
-        "blocks per SM " + ", ".join(
-            f"{a} {cuda_dp.tiles_resident(a)}" for a in ("nw", "ga", "sw")))
+    for line in profile_main.occupancy_lines():
+        log(f"(f) {line}")
     ss = SequenceSet.from_list(raw, M.lut)
     bounds = profile_main.schedule_bounds(ss.lengths, "ga")
     engines = {"tiles-v2": engine.Engine("ga", M.matrix, (0, -10, -1),
@@ -462,7 +548,10 @@ def phase_f(dev, M, raw, tiles_mat, card):
 
 def phase_g(rng, dev, card):
     from sequencealigner_tpu_torch import align, engine, matrices
-    from sequencealigner_tpu_torch.ops import geometry, torch_dp
+    from sequencealigner_tpu_torch.io.input import SequenceSet
+    from sequencealigner_tpu_torch.ops import geometry
+    from sequencealigner_tpu_torch.scheduler import Schedule
+    from sequencealigner_tpu_torch.tools import profile_main
     from sequencealigner_tpu_torch.tools.profile_main import proteins
 
     nuc = matrices.get("nuc44")
@@ -477,6 +566,21 @@ def phase_g(rng, dev, card):
     plain_sample(rng, dev, dna, nuc.lut, sub, g, "sw", mat, 64, "(g) long")
     log(f"(g) long: 64 sampled pairs == plain version on the card; "
         f"{stats.gcups:.2f} GCUPS")
+    ss = SequenceSet.from_list(dna, nuc.lut)
+    r = profile_main.profiled_run(eng, ss)
+    if not np.array_equal(r["matrix"], mat):
+        raise AssertionError("(g) profiled long run: matrix differs")
+    b = profile_main.schedule_bounds(ss.lengths, "sw")["linear-v1"]
+    ms, n = r["ms"]["align_pairs"], r["launches"]["align_pairs"]
+    # One bucket, so one launch of all the pairs (its G as the wrapper
+    # picks it).
+    edge = Schedule.build(ss.lengths).buckets[-1].edge
+    if n != 1:
+        raise AssertionError(f"(g) long: {n} per-pair launches, not one")
+    log(f"(g) long profiled: pairs_kernel device {ms:.3f} ms in one launch "
+        f"of {stats.pairs} pairs, G={pair_lanes(stats.pairs, edge, 'sw')}, "
+        f"bound {b['align_pairs']:.3f} ms, share of bound "
+        f"{b['align_pairs'] / ms:.3f}; wall {r['wall']:.3f} s")
     few = [s.tobytes().decode() for s in dna if len(s) > geometry.W_MAX][:3]
     got = align(few, algo="sw", matrix="nuc44", open=10, extend=1,
                 device=dev.type)

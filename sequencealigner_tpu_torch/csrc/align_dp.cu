@@ -26,7 +26,9 @@
 // keeps the DP out of device memory:
 //   - one thread scores one pair; a block is 128 pairs.  In the tile kernel
 //     the block is the 128 k-lanes of one (tile, c-row), so the c-row's
-//     codes are a warp-wide broadcast and kmatT rows load coalesced;
+//     codes are a warp-wide broadcast and kmatT rows load coalesced.  The
+//     per-pair kernel may instead split a pair across a group of G lanes of
+//     one warp (below);
 //   - a band of KB = 32 DP rows (H, and X for the affine algorithms) lives
 //     in registers while the thread sweeps the columns left to right; the
 //     vertical gap (Y) is a scalar carried down the band.  One column of a
@@ -49,19 +51,29 @@
 //     consecutive bytes (GridScore);
 //   - a thread stops at its own pair's lengths, so pad rows, pad columns and
 //     dummy descriptor rows cost nothing.
-// All three kernels run one sweep (dp_sweep, sweep_band), parameterised by
-// the score source: columns in groups of four, the last band split from the
-// full ones, so that only there SW tests which rows lie past l2.  The tile
-// kernel's grid is persistent: SMs x resident blocks
-// (align_dp_tiles_resident, the occupancy query), each taking (tile, c-row)
-// items from a device counter, longest c-rows of the launch first, so
-// uneven lengths balance and a launch ends with one short tail; the wrapper
-// zeroes the counter on the launch's stream.  At 167 registers (GA, SW)
-// three tile blocks fit an SM (NW, at 128, four); a fourth would need 128
-// registers, which with __launch_bounds__(128, 4) spill and measured
-// slower.  The per-pair and grid kernels stride over their items.  All
-// kernels launch on the caller's stream, allocate nothing and do not
-// synchronise.
+// All three kernels run one sweep (dp_sweep, sweep_band, band_group),
+// parameterised by the score source: columns in groups of four, the last
+// band split from the full ones, so that only there SW tests which rows lie
+// past l2.  The tile and per-pair kernels' grids are persistent: SMs x
+// resident blocks (align_dp_tiles_resident, align_dp_pairs_resident: the
+// occupancy query), taking items from a device counter, highest index
+// first (a launch's longest c-rows, or its longest pairs: bucket rows are
+// in ascending length order), so uneven lengths balance and a launch ends
+// with one short tail; the wrapper zeroes the counter on the launch's
+// stream.  A tile block takes (tile, c-row) items; a per-pair warp takes 32
+// consecutive pairs, one to a lane, or 32 / G, one to a group of G lanes.
+// At 167 registers (GA, SW) three tile blocks fit an SM (NW, at 128, four);
+// a fourth would need 128 registers, which with __launch_bounds__(128, 4)
+// spill and measured slower.
+// The per-pair kernel's split form (G = 2..32 lanes a pair, chosen per
+// launch by the wrapper where the pairs are too few to fill the card: long
+// DNA, the diagonal remainder, a schedule's small tail launches) sweeps a
+// pair in stripes of G bands, lane t holding band t, t column groups
+// behind lane t-1, from which it takes its band's top row by a warp
+// shuffle; only lane 0 reads and lane G-1 writes the crossing stream, one
+// row per group (split_sweep, sweep_stripe).  The grid kernel strides over
+// its items.  All kernels launch on the caller's stream, allocate nothing
+// and do not synchronise.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -228,6 +240,38 @@ __device__ __forceinline__ int band_row(const int (&H)[KB], int idx) {
   return r;
 }
 
+// One group of four columns (4g+1 .. 4g+4) of a band, after sc.group(g):
+// DP rows r0+1 .. r0+KB.  On entry hv, yv hold H and Y of row r0 in these
+// columns (unread in the top band, whose row r0 is the border) and diag_top
+// = H[r0][4g]; on exit they hold the band's bottom row in them and diag_top
+// = H[r0][4g+4].
+// Column j takes its row-r0 values from .x and leaves the bottom in .w, so
+// after four steps hv, yv are in order.
+template <int ALGO, bool TAIL, class Score>
+__device__ __forceinline__ void band_group(int g, int l1, bool top,
+                                           Score& sc, int gap, int opn,
+                                           int ext, int slope, int (&H)[KB],
+                                           int (&X)[KB], int& diag_top,
+                                           int& best, int nrows, int4& hv,
+                                           int4& yv) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = 4 * g + j + 1;
+    int bottom = 0, y = SCORE_MIN;
+    if (c <= l1) {  // in tile mode l1 is the block's: a uniform branch
+      const int up_h = top ? border<ALGO>(c, gap, opn, slope) : hv.x;
+      if (!top) y = yv.x;  // Y[r0][c]
+      sc.column(j);
+      dp_column<ALGO, TAIL>(H, X, diag_top, up_h, y, sc, gap, opn, ext,
+                            best, nrows);
+      diag_top = up_h;
+      bottom = H[KB - 1];
+    }
+    hv = make_int4(hv.y, hv.z, hv.w, bottom);
+    yv = make_int4(yv.y, yv.z, yv.w, y);
+  }
+}
+
 // One band of the sweep (see dp_sweep): DP rows r0+1 .. r0+KB, columns
 // 1 .. l1 in groups of four.  hs / ys: this lane's crossing streams as int4
 // groups of four columns, element stride LANES; the next group is loaded
@@ -257,24 +301,8 @@ __device__ __forceinline__ void sweep_band(int l1, int r0, int nrows,
       hn = hs[(g + 1) * LANES];
       if (ALGO != NW) yn = ys[(g + 1) * LANES];
     }
-    // Column j of the group takes its row-r0 values from .x and leaves the
-    // band's bottom row in .w, so after four steps hv, yv are in order.
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = 4 * g + j + 1;
-      int bottom = 0, y = SCORE_MIN;
-      if (c <= l1) {  // in tile mode l1 is the block's: a uniform branch
-        const int up_h = top ? border<ALGO>(c, gap, opn, slope) : hv.x;
-        if (!top) y = yv.x;  // Y[r0][c]
-        sc.column(j);
-        dp_column<ALGO, TAIL>(H, X, diag_top, up_h, y, sc, gap, opn, ext,
-                              best, nrows);
-        diag_top = up_h;
-        bottom = H[KB - 1];
-      }
-      hv = make_int4(hv.y, hv.z, hv.w, bottom);
-      yv = make_int4(yv.y, yv.z, yv.w, y);
-    }
+    band_group<ALGO, TAIL>(g, l1, top, sc, gap, opn, ext, slope, H, X,
+                           diag_top, best, nrows, hv, yv);
     if (!last) {
       hs[g * LANES] = hv;
       if (ALGO != NW) ys[g * LANES] = yv;
@@ -366,32 +394,168 @@ tiles_kernel(const int* __restrict__ desc, int T,
   }
 }
 
-// Per-pair mode: item = 128 consecutive pairs; the kernel gathers each
-// pair's code rows from the bucket matrices itself.
-template <int ALGO>
-__global__ void __launch_bounds__(LANES)
+// Split per-pair mode: a pair is swept by a group of G lanes of one warp (G
+// a power of two, 2..32), in stripes of G bands.  Lane t of the group holds
+// band t of the stripe, DP rows r0+1 .. r0+KB, and sweeps its column groups
+// t steps behind lane t-1: at step q it sweeps group q - t, whose row r0
+// (H, and Y for GA/SW) lane t-1 left in its int4 bottoms at step q-1, and
+// takes them with one shuffle each (width G, the group's own mask: the
+// groups of a warp hold different pairs and need not step together).  The
+// diagonal H[r0][4g] is the last column of the group before, already held.
+// Lane 0 takes row r0 from the crossing stream instead (group g+1 loaded at
+// step g) and lane G-1 writes its bottoms there for the next stripe; lane
+// G-1 rewrites group g at step g + G - 1, after lane 0's read of it reached
+// it through the shuffles.  Every lane of the group runs every step and
+// every shuffle.  hs / ys: the group's stream, element stride `stride`.
+template <int ALGO, bool TAIL, class Score>
+__device__ __forceinline__ void sweep_stripe(
+    int l1, int r0, int nrows, int t, int G, unsigned gmask, int steps,
+    bool top, bool last, Score& sc, int gap, int opn, int ext, int slope,
+    int (&H)[KB], int& best, int4* __restrict__ hs, int4* __restrict__ ys,
+    int stride) {
+  int X[KB];
+  band_start<ALGO>(r0, gap, opn, slope, H, X);
+  int diag_top = border<ALGO>(r0, gap, opn, slope);  // H[r0][c-1]
+  const bool reads = !top && t == 0, writes = !last && t == G - 1;
+  const bool active = nrows > 0;
+  int4 hn = make_int4(0, 0, 0, 0), yn = hn;  // lane 0: next group's row r0
+  int4 hv = hn, yv = hn;  // this lane's bottoms of its last swept group
+  if (reads) {
+    hn = hs[0];
+    if (ALGO != NW) yn = ys[0];
+  }
+  for (int q = 0; q < steps; ++q) {
+    // Every lane runs the same code each step, without branches around the
+    // sweep: a lane with no group to sweep (before its first, after its last,
+    // or with no rows) sweeps no column of a clamped one.  Branches there
+    // cost the split form 40-80 registers (a resident block) as built for
+    // sm_90a.
+    const int g = q - t;
+    const bool on = active && g >= 0 && 4 * g < l1;
+    const int gc = min(max(g, 0), (l1 - 1) / 4);
+    sc.group(gc);
+    hv.x = __shfl_up_sync(gmask, hv.x, 1, G);
+    hv.y = __shfl_up_sync(gmask, hv.y, 1, G);
+    hv.z = __shfl_up_sync(gmask, hv.z, 1, G);
+    hv.w = __shfl_up_sync(gmask, hv.w, 1, G);
+    if (ALGO != NW) {
+      yv.x = __shfl_up_sync(gmask, yv.x, 1, G);
+      yv.y = __shfl_up_sync(gmask, yv.y, 1, G);
+      yv.z = __shfl_up_sync(gmask, yv.z, 1, G);
+      yv.w = __shfl_up_sync(gmask, yv.w, 1, G);
+    }
+    if (t == 0) hv = hn;
+    if (t == 0) yv = yn;
+    if (reads && 4 * (g + 1) < l1) hn = hs[(g + 1) * stride];
+    if (ALGO != NW && reads && 4 * (g + 1) < l1) yn = ys[(g + 1) * stride];
+    band_group<ALGO, TAIL>(gc, on ? l1 : 0, top && t == 0, sc, gap, opn,
+                           ext, slope, H, X, diag_top, best, nrows, hv, yv);
+    if (writes && on) hs[g * stride] = hv;
+    if (ALGO != NW && writes && on) ys[g * stride] = yv;
+  }
+}
+
+// Score of one pair in split mode (see sweep_stripe), called by all G lanes
+// of its group with the same pair.  Returns, in lane (l2 - 1) % (G * KB) /
+// KB for NW/GA, H[l2][l1] (the lane whose band holds row l2 in the last
+// stripe), and in every lane for SW the best over the group's lanes and
+// stripes; the other lanes' values are not the score.  A pair with a zero
+// length scores 0.  Only the last stripe's SW lanes test which rows lie past
+// l2.
+template <int ALGO, class Score>
+__device__ __forceinline__ int split_sweep(int l1, int l2, int t, int G,
+                                           unsigned gmask, Score& sc,
+                                           int gap, int opn, int ext,
+                                           int4* __restrict__ hs,
+                                           int4* __restrict__ ys,
+                                           int stride) {
+  if (l1 <= 0 || l2 <= 0) return 0;
+  const int slope = ALGO == NW ? gap : max(opn, ext);
+  int best = 0;
+  int H[KB];
+  const int rows = G * KB;
+  const int nstripes = (l2 + rows - 1) / rows;
+  const int ngroups = (l1 + 3) / 4;
+  for (int s = 0; s < nstripes; ++s) {
+    const int r0 = s * rows + t * KB;
+    const bool last = s == nstripes - 1;
+    // The stripe's last lane with rows; the group steps until it is done.
+    const int tlast = last ? (l2 - 1 - s * rows) / KB : G - 1;
+    const int steps = ngroups + tlast;
+    const int nrows = t <= tlast ? l2 - r0 : 0;
+    if (nrows > 0) sc.band(r0, l2);
+    if (ALGO == SW && last)
+      sweep_stripe<ALGO, true>(l1, r0, nrows, t, G, gmask, steps, s == 0,
+                               true, sc, gap, opn, ext, slope, H, best, hs,
+                               ys, stride);
+    else
+      sweep_stripe<ALGO, false>(l1, r0, nrows, t, G, gmask, steps, s == 0,
+                                last, sc, gap, opn, ext, slope, H, best, hs,
+                                ys, stride);
+    // Lane G-1's stream writes reach lane 0's reads of the next stripe.
+    __syncwarp(gmask);
+  }
+  if (ALGO == SW) {
+    for (int o = 1; o < G; o <<= 1)
+      best = max(best, __shfl_xor_sync(gmask, best, o, G));
+    return best;
+  }
+  return band_row(H, (l2 - 1) % KB);
+}
+
+// Per-pair mode.  The grid is persistent (SMs x resident blocks); each
+// warp takes items of consecutive pairs from the device counter `next`,
+// highest index first (a launch's higher pair ids are its longer pairs), 32
+// pairs to an item with one lane a pair (SPLIT false, dp_sweep) or 32 / G
+// with a group of G lanes a pair (SPLIT true, split_sweep).  A warp claims
+// with one atomic and a shuffle, so no block barrier is needed per item.
+// Each group (a lane when G = 1) owns stream slot threadIdx.x / G of its
+// block's scratch, laid out [column / 4][slot][4] (LANES / G slots).  The
+// kernel gathers each pair's code rows from the bucket matrices itself.
+// Launch bounds: three blocks per SM hold the one-lane form without a
+// spill (NW 167, GA 165, SW 168 registers; with no minimum ptxas puts NW at
+// 128 registers with an 8-byte spill); the split form takes what it needs
+// (NW 167 registers, three blocks; GA 199 and SW 189, two blocks: bounded
+// to three, they spill).
+template <int ALGO, bool SPLIT>
+__global__ void __launch_bounds__(LANES, SPLIT ? 1 : 3)
 pairs_kernel(const int8_t* __restrict__ mat_c, int wc,
              const int8_t* __restrict__ mat_k, int wk,
              const int* __restrict__ rc, const int* __restrict__ rk,
              const int* __restrict__ lens_c, const int* __restrict__ lens_k,
              int n, const int* __restrict__ sub, const int* __restrict__ gaps,
-             int* __restrict__ out, int* __restrict__ scratch, int wmax) {
+             int* __restrict__ out, int* __restrict__ scratch, int wmax,
+             int G, int* __restrict__ next) {
   __shared__ int subT[ALPHA * ALPHA];
   load_subT(sub, subT);
   const int gap = gaps[0], opn = gaps[1], ext = gaps[2];
-  const int lane = threadIdx.x;
-  int4* hs = crossing(scratch, wmax);
-  int4* ys = hs + (size_t)(wmax / 4) * LANES;
-  const int items = (n + LANES - 1) / LANES;
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int p = item * LANES + lane;
+  if (!SPLIT) G = 1;
+  const int wl = threadIdx.x & 31;  // lane in the warp
+  const int t = wl & (G - 1);       // lane in the group
+  const int per_item = 32 / G;      // pairs per warp item
+  const int stride = LANES / G;     // stream slots per block
+  const unsigned gmask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1) << (wl & ~(G - 1));
+  int4* hs = reinterpret_cast<int4*>(scratch +
+                                     (size_t)blockIdx.x * 2 * wmax * stride) +
+             threadIdx.x / G;
+  int4* ys = hs + (size_t)(wmax / 4) * stride;
+  const int items = (n + per_item - 1) / per_item;
+  for (;;) {
+    int claimed = 0;
+    if (wl == 0) claimed = atomicAdd(next, 1);
+    const int item = items - 1 - __shfl_sync(0xffffffffu, claimed, 0);
+    if (item < 0) break;
+    const int p = item * per_item + wl / G;
     if (p >= n) continue;
     const int8_t* cs = mat_c + (size_t)rc[p] * wc;
     const int8_t* ks = mat_k + (size_t)rk[p] * wk;
-    const int l1 = lens_c[rc[p]];
+    const int l1 = lens_c[rc[p]], l2 = lens_k[rk[p]];
     auto kcode = [ks](int k) { return (int)ks[k]; };
-    // This pair's four column letters of group g (none past l1, so no read
-    // leaves the row).
+    // This pair's four column letters of group g, a byte load each (none
+    // past l1, so no read leaves the row).  One 32-bit load of the four,
+    // where rows are 4-byte aligned, measured 13% slower on the main set's
+    // linear-v1 launches and 9% on its diagonal remainder (PERF.md §6).
     auto cword = [cs, l1](int g) {
       unsigned w = 0;
 #pragma unroll
@@ -400,7 +564,16 @@ pairs_kernel(const int8_t* __restrict__ mat_c, int wc,
       return w;
     };
     auto sc = code_score(kcode, cword, subT);
-    out[p] = dp_sweep<ALGO>(l1, lens_k[rk[p]], sc, gap, opn, ext, hs, ys);
+    if (!SPLIT) {
+      out[p] = dp_sweep<ALGO>(l1, l2, sc, gap, opn, ext, hs, ys);
+    } else {
+      const int v = split_sweep<ALGO>(l1, l2, t, G, gmask, sc, gap, opn, ext,
+                                      hs, ys, stride);
+      const int owner = ALGO == SW || l1 <= 0 || l2 <= 0
+                            ? 0
+                            : (l2 - 1) % (G * KB) / KB;
+      if (t == owner) out[p] = v;
+    }
   }
 }
 
@@ -481,32 +654,52 @@ int align_dp_tiles_resident(int algo, int* blocks) {
   }
 }
 
+// G = 1 launches the one-lane form, G = 2..32 (a power of two) the split
+// form; grid is SMs x align_dp_pairs_resident(algo, G > 1) blocks, at most
+// one per item, and `next` an int32 zeroed on the stream.
 int align_dp_pairs(const int8_t* mat_c, int wc, const int8_t* mat_k, int wk,
                    const int* rc, const int* rk, const int* lens_c,
                    const int* lens_k, int n, const int* sub, const int* gaps,
-                   int algo, int* out, int* scratch, int wmax, int grid,
-                   void* stream) {
+                   int algo, int* out, int* scratch, int wmax, int G,
+                   int* next, int grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G < 1 || G > 32 || (G & (G - 1))) return (int)cudaErrorInvalidValue;
+#define PAIRS_LAUNCH(A, S)                                                  \
+  pairs_kernel<A, S><<<grid, LANES, 0, st>>>(                              \
+      mat_c, wc, mat_k, wk, rc, rk, lens_c, lens_k, n, sub, gaps, out,     \
+      scratch, wmax, G, next)
+  const bool split = G > 1;
   switch (algo) {
     case NW:
-      pairs_kernel<NW><<<grid, LANES, 0, st>>>(mat_c, wc, mat_k, wk, rc, rk,
-                                               lens_c, lens_k, n, sub, gaps,
-                                               out, scratch, wmax);
+      if (split) PAIRS_LAUNCH(NW, true); else PAIRS_LAUNCH(NW, false);
       break;
     case GA:
-      pairs_kernel<GA><<<grid, LANES, 0, st>>>(mat_c, wc, mat_k, wk, rc, rk,
-                                               lens_c, lens_k, n, sub, gaps,
-                                               out, scratch, wmax);
+      if (split) PAIRS_LAUNCH(GA, true); else PAIRS_LAUNCH(GA, false);
       break;
     case SW:
-      pairs_kernel<SW><<<grid, LANES, 0, st>>>(mat_c, wc, mat_k, wk, rc, rk,
-                                               lens_c, lens_k, n, sub, gaps,
-                                               out, scratch, wmax);
+      if (split) PAIRS_LAUNCH(SW, true); else PAIRS_LAUNCH(SW, false);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef PAIRS_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of pairs_kernel<algo, split>.
+int align_dp_pairs_resident(int algo, int split, int* blocks) {
+#define PAIRS_OCC(A)                                                        \
+  (int)(split ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(             \
+                    blocks, pairs_kernel<A, true>, LANES, 0)               \
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(             \
+                    blocks, pairs_kernel<A, false>, LANES, 0))
+  switch (algo) {
+    case NW: return PAIRS_OCC(NW);
+    case GA: return PAIRS_OCC(GA);
+    case SW: return PAIRS_OCC(SW);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PAIRS_OCC
 }
 
 int align_dp_grid(const int8_t* sk, int S, int W, int Kpad, int B,

@@ -11,19 +11,27 @@ check devices, dtypes, shapes and contiguity; the row indices inside
 them from the schedule), since reading them back would synchronise the
 stream.
 
-Grid and scratch: ``align_tiles`` launches a persistent grid of SMs x the
-tile kernel's resident blocks per SM (``tiles_resident``, the CUDA
-occupancy query for its registers), whose blocks take (tile, c-row) items
-from a device counter that the wrapper zeroes on the launch's stream;
-``align_pairs`` and ``align_grid`` launch up to ``BLOCKS_PER_SM`` blocks per
-SM that stride over their items.  Either way the grid is capped by the
-items, and each block owns one band-crossing scratch row of two int32
-streams x the widest column count (rounded up to a group of four, the
-kernels' [column / 4][lane][4] layout) x 128 lanes, so the scratch is sized by
-the grid (at most ``SCRATCH_BYTES`` unless one block per SM needs more),
-never by the pair count.  The engine sends a combo's tiles in as few
-launches as the flush cap allows (``tiles_per_launch``), so that each
-launch keeps every resident block busy.
+Grid and scratch: ``align_tiles`` and ``align_pairs`` launch a persistent
+grid of SMs x their kernel's resident blocks per SM (``tiles_resident``,
+``pairs_resident``: the CUDA occupancy query for its registers), whose
+blocks (tile kernel) or warps (per-pair kernel) take items from a device
+counter that the wrapper zeroes on the launch's stream, highest index
+first; ``align_grid`` launches up to ``BLOCKS_PER_SM`` blocks per SM that
+stride over their items.  Either way the grid is capped by the items, and
+each block owns one band-crossing scratch row of two int32 streams x the
+widest column count (rounded up to a group of four, the kernels' [column /
+4][slot][4] layout) x its stream slots, so the scratch is sized by the grid
+(at most ``SCRATCH_BYTES`` unless one block per SM needs more), never by
+the pair count.  The engine sends a combo's tiles in as few launches as the
+flush cap allows (``tiles_per_launch``), so that each launch keeps every
+resident block busy.
+
+Lanes per pair: ``align_pairs`` scores a pair with one lane (128 slots a
+block) or, where the launch has too few pairs to fill the card, with a
+group of G lanes of one warp, lane t holding band t of each stripe of G
+bands (128 / G slots a block: one per group).  ``pair_lanes`` picks G from
+the pair count, the k edge and the card alone (``pairs_layout`` the whole
+launch); there is no setting.
 
 The kernels are compiled on the first CUDA call, from the package's own
 ``csrc/*.cu`` only, with nvcc into a shared library with a plain C interface
@@ -62,15 +70,21 @@ KB = 32
 #: an edge of about 500,000 columns is the most an 80 GB card admits (the
 #: kernels have no W_MAX; lengths and in-band offsets are int32).
 SCRATCH_BYTES = 2 << 30
-#: Blocks per SM the per-pair and grid kernels' grids are sized for (the
-#: tile kernel's grid is sized by its occupancy instead: tiles_resident).
+#: Blocks per SM the grid kernel's grid is sized for (the tile and per-pair
+#: kernels' grids are sized by their occupancy instead: tiles_resident,
+#: pairs_resident).
 BLOCKS_PER_SM = 8
+#: Threads of a warp; the per-pair kernel's items are per warp.
+WARP = 32
+#: Most lanes per pair of the per-pair kernel's split form (one warp).
+MAX_LANES = 32
 
 ALGO_ID = {"nw": 0, "ga": 1, "sw": 2}
 
 _lib = None
 _lock = threading.Lock()
-_resident: dict = {}  # (device index, algo) -> tile-kernel blocks per SM
+#: (kernel, device index, algo[, split]) -> resident blocks per SM.
+_resident: dict = {}
 #: Seconds the last build took (0.0 when the library was already built) and
 #: nvcc's register/spill report for it.
 build_seconds = 0.0
@@ -120,9 +134,11 @@ def load_library() -> ctypes.CDLL:
         lib.align_dp_tiles_resident.argtypes = [i, p]
         lib.align_dp_tiles_resident.restype = i
         lib.align_dp_pairs.argtypes = [
-            p, i, p, i, p, p, p, p, i, p, p, i, p, p, i, i, p,
+            p, i, p, i, p, p, p, p, i, p, p, i, p, p, i, i, p, i, p,
         ]
         lib.align_dp_pairs.restype = i
+        lib.align_dp_pairs_resident.argtypes = [i, i, p]
+        lib.align_dp_pairs_resident.restype = i
         lib.align_dp_grid.argtypes = [p, i, i, i, i, p, p, p, i, p, p, i, i, p]
         lib.align_dp_grid.restype = i
         lib.align_dp_error_string.argtypes = [i]
@@ -140,39 +156,95 @@ def _check(name: str, t: torch.Tensor, dtype, dev, ndim: int) -> None:
         raise ValueError(f"{name} must be a contiguous {ndim}-d tensor")
 
 
+def launch_layout(items: int, wmax: int, banded: bool, sms: int,
+                  per_sm: int, slots: int = LANE):
+    """(grid, wmax, scratch int32 count) of one launch: at most ``per_sm``
+    blocks per SM and one per item; when ``banded``, each block owns two
+    int32 streams (H, Y) of wmax columns, rounded up to a multiple of four,
+    x ``slots`` stream slots, and the grid keeps that scratch within
+    ``SCRATCH_BYTES`` unless one block per SM needs more.  Pure: the sizes
+    depend on the shapes and the card only."""
+    grid = max(1, min(items, sms * per_sm))
+    if not banded:
+        return grid, 0, 0
+    wmax = -(-wmax // 4) * 4
+    per_block = 2 * wmax * slots
+    grid = max(1, min(grid, max(sms, SCRATCH_BYTES // (4 * per_block))))
+    return grid, wmax, grid * per_block
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _grid_and_scratch(items: int, wmax: int, banded: bool, dev,
                       per_sm: int = BLOCKS_PER_SM):
-    """Grid size (at most ``per_sm`` blocks per SM and one per item; blocks
-    loop over items), the band-crossing scratch and its column count: two
-    int32 streams (H, Y) of wmax columns, rounded up to a multiple of four,
-    x LANE lanes per block.  The wrapper drops its reference right after
-    the launch: the caching allocator hands the memory only to later work
-    on the same stream."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = min(items, sms * per_sm)
-    if not banded:
-        return grid, torch.empty(1, dtype=torch.int32, device=dev), 0
-    wmax = -(-wmax // 4) * 4
-    per_block = 2 * wmax * LANE * 4
-    grid = max(1, min(grid, max(sms, SCRATCH_BYTES // per_block)))
-    scratch = torch.empty(grid * 2 * wmax * LANE, dtype=torch.int32,
-                          device=dev)
-    return grid, scratch, wmax
+    """``launch_layout`` on ``dev``, with the scratch allocated.  The
+    wrapper drops its reference right after the launch: the caching
+    allocator hands the memory only to later work on the same stream."""
+    grid, wmax, n = launch_layout(items, wmax, banded, _sms(dev), per_sm)
+    return grid, torch.empty(max(1, n), dtype=torch.int32, device=dev), wmax
+
+
+def _occupancy(key, query, what: str) -> int:
+    if key not in _resident:
+        lib = load_library()
+        n = ctypes.c_int(0)
+        _raise_on(lib, query(lib, ctypes.byref(n)), what)
+        _resident[key] = max(1, n.value)
+    return _resident[key]
 
 
 def tiles_resident(algo: str) -> int:
     """Resident blocks per SM of the tile kernel for ``algo`` (the CUDA
     occupancy query for its registers and shared memory), on the current
     device."""
-    key = (torch.cuda.current_device(), algo)
-    if key not in _resident:
-        lib = load_library()
-        n = ctypes.c_int(0)
-        _raise_on(lib, lib.align_dp_tiles_resident(ALGO_ID[algo],
-                                                   ctypes.byref(n)),
-                  "align_tiles occupancy query")
-        _resident[key] = max(1, n.value)
-    return _resident[key]
+    return _occupancy(
+        ("tiles", torch.cuda.current_device(), algo),
+        lambda lib, n: lib.align_dp_tiles_resident(ALGO_ID[algo], n),
+        "align_tiles occupancy query")
+
+
+def pairs_resident(algo: str, split: bool) -> int:
+    """Resident blocks per SM of the per-pair kernel for ``algo``, in its
+    one-lane or its split form, on the current device."""
+    return _occupancy(
+        ("pairs", torch.cuda.current_device(), algo, split),
+        lambda lib, n: lib.align_dp_pairs_resident(ALGO_ID[algo],
+                                                   int(split), n),
+        "align_pairs occupancy query")
+
+
+def pair_lanes(npairs: int, edge_k: int, sms: int, resident: int) -> int:
+    """Lanes per pair (G) of one align_pairs launch of ``npairs`` pairs
+    whose k bucket has ``edge_k`` rows, on a card of ``sms`` SMs holding
+    ``resident`` one-lane blocks each: the smallest power of two for which
+    npairs x G lanes fill that resident grid once, at most ``MAX_LANES`` and
+    at most the edge's bands of KB rows (more would give a lane no rows).
+    Long pairs in small launches get many lanes; a launch of more pairs
+    never gets more.  (Filling it twice over, or half, measured slower on
+    the H100 across long DNA, the diagonal remainder and linear-v1: PERF.md
+    §6.)"""
+    fill = sms * resident * LANE
+    bands = -(-edge_k // KB)
+    g = 1
+    while g < MAX_LANES and 2 * g <= bands and npairs * g < fill:
+        g *= 2
+    return g
+
+
+def pairs_layout(npairs: int, edge_c: int, edge_k: int, sms: int,
+                 resident: tuple):
+    """(G, grid, wmax, scratch int32 count) of one align_pairs launch;
+    ``resident`` is the (one-lane, split) forms' blocks per SM.  Items are
+    per warp (WARP / G pairs each), four warps to a block; the scratch has
+    one stream slot per group of G lanes."""
+    g = pair_lanes(npairs, edge_k, sms, resident[0])
+    items = -(-npairs // (WARP // g))
+    blocks = -(-items // (LANE // WARP))
+    grid, wmax, n = launch_layout(blocks, edge_c, edge_k > KB, sms,
+                                  resident[g > 1], LANE // g)
+    return g, grid, wmax, n
 
 
 def tiles_per_launch(ntiles: int, cap: int) -> int:
@@ -266,15 +338,20 @@ def align_pairs(mat_c, mat_k, rc, rk, lens_c, lens_k, sub, gaps, *,
     if n == 0:
         return out
     lib = load_library()
+    wc, wk = mat_c.shape[1], mat_k.shape[1]
     with torch.cuda.device(dev):
-        grid, scratch, wmax = _grid_and_scratch(
-            -(-n // LANE), mat_c.shape[1], mat_k.shape[1] > KB, dev
-        )
+        g, grid, wmax, nscratch = pairs_layout(
+            n, wc, wk, _sms(dev),
+            (pairs_resident(algo, False), pairs_resident(algo, True)))
+        scratch = torch.empty(max(1, nscratch), dtype=torch.int32,
+                              device=dev)
+        # The work counter, zeroed on the launch's stream.
+        nxt = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.align_dp_pairs(
-            mat_c.data_ptr(), mat_c.shape[1], mat_k.data_ptr(),
-            mat_k.shape[1], rc.data_ptr(), rk.data_ptr(), lens_c.data_ptr(),
-            lens_k.data_ptr(), n, sub.data_ptr(), gaps.data_ptr(),
-            ALGO_ID[algo], out.data_ptr(), scratch.data_ptr(), wmax, grid,
+            mat_c.data_ptr(), wc, mat_k.data_ptr(), wk, rc.data_ptr(),
+            rk.data_ptr(), lens_c.data_ptr(), lens_k.data_ptr(), n,
+            sub.data_ptr(), gaps.data_ptr(), ALGO_ID[algo], out.data_ptr(),
+            scratch.data_ptr(), wmax, g, nxt.data_ptr(), grid,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "align_pairs")

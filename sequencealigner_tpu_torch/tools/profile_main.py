@@ -8,7 +8,9 @@ warm-up run per engine, ``--rounds`` times.  Every run is recorded with
 ``torch.profiler`` and prints, per kernel, its device milliseconds, its
 launches, its bound and its share of the bound, and is followed by one run
 that is not profiled, for the wall time; all the matrices must be equal.
-It also prints nvcc's register report.  The sets (chip_smoke.py's):
+It also prints nvcc's register report, and the registers and resident
+blocks per SM of the tile kernel and of both forms of the per-pair kernel.
+The sets (chip_smoke.py's):
 
   main  4096 proteins of 50-500 residues, GA BLOSUM62 open 10 extend 1,
         in turns under the tiles-v2 and the linear-v1 schedule
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import sys
 import time
 
@@ -189,20 +192,42 @@ def turns(engines: dict, ss: SequenceSet, bounds: dict, rounds: int,
     return prof
 
 
-def tile_registers() -> dict:
-    """Registers per thread of tiles_kernel<NW|GA|SW> from nvcc's report of
-    the build (empty when the library was built by another process)."""
-    regs, algo = {}, None
+def registers(kernel: str) -> dict:
+    """Registers per thread of each instance of ``kernel`` (tiles_kernel,
+    pairs_kernel or grid_kernel) from nvcc's report of the build (empty
+    when the library was built by another process), keyed by algo; for
+    pairs_kernel by (algo, split form)."""
+    regs, key = {}, None
+    pat = re.compile(kernel + r"ILi(\d)E(?:Lb(\d)E)?")
     for ln in cuda_dp.build_log.splitlines():
         if "Compiling entry" in ln:
-            algo = None
-            for i, a in enumerate(("nw", "ga", "sw")):
-                if f"tiles_kernelILi{i}E" in ln:
-                    algo = a
-        elif algo and "registers" in ln:
-            regs[algo] = int(ln.split("Used")[1].split()[0])
-            algo = None
+            m = pat.search(ln)
+            key = None
+            if m:
+                algo = ("nw", "ga", "sw")[int(m.group(1))]
+                key = algo if m.group(2) is None else (algo, m.group(2) == "1")
+        elif key and "registers" in ln:
+            regs[key] = int(ln.split("Used")[1].split()[0])
+            key = None
     return regs
+
+
+def occupancy_lines() -> list:
+    """Registers and resident blocks per SM of the tile kernel and of both
+    forms of the per-pair kernel, per algo, on the current device."""
+    tiles, pairs = registers("tiles_kernel"), registers("pairs_kernel")
+    algos = ("nw", "ga", "sw")
+    return [
+        "tiles_kernel registers per thread " + ", ".join(
+            f"{a} {tiles.get(a)}" for a in algos) + "; resident blocks per "
+        "SM " + ", ".join(f"{a} {cuda_dp.tiles_resident(a)}" for a in algos),
+    ] + [
+        f"pairs_kernel {form} registers per thread " + ", ".join(
+            f"{a} {pairs.get((a, split))}" for a in algos) + "; resident "
+        "blocks per SM " + ", ".join(
+            f"{a} {cuda_dp.pairs_resident(a, split)}" for a in algos)
+        for form, split in (("one-lane", False), ("split", True))
+    ]
 
 
 def report(label: str, r: dict, bounds: dict, log=print) -> None:
@@ -255,6 +280,8 @@ def main(argv=None) -> int:
     for ln in cuda_dp.build_log.splitlines():  # nvcc's -Xptxas -v report
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print(f"ptxas: {ln.strip()}")
+    for line in occupancy_lines():
+        print(line)
     bounds = schedule_bounds(ss.lengths, algo)
     print(f"set {args.set}: {ss.num} sequences of {min(ss.lengths)}-"
           f"{max(ss.lengths)} (seed {args.seed}), {algo.upper()} "

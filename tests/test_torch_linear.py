@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 import torch
 
-import sequencealigner_tpu_torch as port_pkg
 from sequencealigner_tpu import engine as ref_engine
 from sequencealigner_tpu import matrices as ref_matrices
 from sequencealigner_tpu import scheduler as ref_scheduler
@@ -21,7 +20,6 @@ from sequencealigner_tpu.io.input import SequenceSet as RefSequenceSet
 from sequencealigner_tpu.io.output import OutputStore as RefOutputStore
 from sequencealigner_tpu.ops import oracle as ref_oracle
 from sequencealigner_tpu.ops import pallas_dp
-from sequencealigner_tpu_torch import cli as port_cli
 from sequencealigner_tpu_torch import engine as port_engine
 from sequencealigner_tpu_torch import scheduler
 from sequencealigner_tpu_torch.io.input import SequenceSet
@@ -111,25 +109,6 @@ def test_long_bucket_route_matches_reference(monkeypatch, algo, gaps):
     monkeypatch.setattr(pallas_dp, "W_MAX", 64)
     seqs = _seqs(5, 140, lambda rng: rng.integers(70, 91, 70))
     _compare_with_reference(monkeypatch, seqs, algo, gaps)
-
-
-def test_sequences_over_4096_through_align_and_cli(tmp_path):
-    """Real bucket edges beyond 4096, through align() and the CLI with -C:
-    NW of A*4100 against A*4300 scores 4 * 4100 + 200 * gap (BLOSUM62
-    A/A = 4, gap -4)."""
-    a, b = "A" * 4100, "A" * 4300
-    m = port_pkg.align([a, b], algo="nw", gap=4, device="cpu")
-    assert m[0, 1] == m[1, 0] == 4 * 4100 + 200 * -4
-    fa = tmp_path / "long.fasta"
-    fa.write_text(f">a\n{a}\n>b\n{b}\n")
-    out = tmp_path / "long.h5"
-    rc = port_cli.run(["-i", str(fa), "-o", str(out), "-m", "blosum62", "-a",
-                       "nw", "-p", "4", "-C", "-F", "-Q", "-P"])
-    assert rc == 0
-    import h5py
-
-    with h5py.File(out) as f:
-        assert f["/similarity_matrix"][0, 1] == 4 * 4100 + 200 * -4
 
 
 def _oracle_check(seqs, matrix, algo, gaps, mat, pairs):
