@@ -35,12 +35,17 @@ and no result line is printed.
       Then the same at bench.py's shape (1024 proteins, lengths 24-64);
   (e) the superblock entry points: the grid kernel and the inline mode
       against the grid kernel's plain version for NW/GA/SW at (Lc, Lk) =
-      (21, 13), (80, 70) and (70, 40) with S = 3; then align_superblock at
-      full size (GA, 256 x 256, S = pick_S = 256: 32,768 pairs on a 2 GiB
-      int8 grid) in grid and inline mode, its launch counts zeroed just
+      (21, 13), (80, 70) and (70, 40) with S = 3, and the grid kernel at
+      B = 256, 100, 48, 200 and 130 lanes a row, so that every copy form
+      (cuda_dp.grid_form) is launched, each launch's form, stages, shared
+      memory, registers and resident blocks logged; then align_superblock
+      at full size (GA, 256 x 256, S = pick_S = 256: 32,768 pairs on a 2
+      GiB int8 grid) in grid and inline mode, its launch counts zeroed just
       before, both results against plain, with CUDA-event times of
-      build_stream, the grid kernel and plain; then tools/fuzz_hw with 8
-      trials;
+      build_stream, the grid kernel and plain, and the kernel's share of
+      its bound (the 32-byte sectors of the grid that the lengths need:
+      tools/profile_kernels.grid_bound) and of the whole grid's bytes;
+      then tools/fuzz_hw with 8 trials;
   (f) the linear-v1 schedule (SEQALIGN_TPU_OUTER=0) on (d)'s 4096-protein
       set: the matrix must equal (d)'s tiles-v2 matrix, with no tile launch
       and some per-pair launches; wall time, pairs, cells and GCUPS.  Then
@@ -412,6 +417,29 @@ def grid_block(rng, dev, n, Lc, Lk):
     return s1, s2, l1, l2
 
 
+#: Lanes per superblock row that, with B = 128 (bulk copies a column),
+#: launch every copy form and unit of the grid kernel (cuda_dp.grid_form):
+#: 256 (two chunks) and 48 cp.async of 16 bytes, 100 and 200 of 4 and 8
+#: bytes, 130 byte loads.
+GRID_LANES = (256, 100, 48, 200, 130)
+
+
+def grid_launch_line(sk) -> str:
+    """The copy form, ring and grid of align_grid's GA launch on ``sk``,
+    and the grid kernel's registers (nvcc's report) and resident blocks."""
+    from sequencealigner_tpu_torch.ops import cuda_dp
+    from sequencealigner_tpu_torch.tools.profile_main import registers
+
+    lay = cuda_dp.grid_launch_layout(sk, "ga")
+    regs = registers("grid_kernel")
+    return (f"form {lay['form']} ({lay['unit']}-byte units), "
+            f"{lay['stages']} stages, {lay['smem']} bytes of shared memory, "
+            f"GA grid {lay['grid']}; grid_kernel registers "
+            + ", ".join(f"{a} {regs.get(a)}" for a in ("nw", "ga", "sw"))
+            + "; resident blocks per SM " + ", ".join(
+                f"{a} {cuda_dp.grid_resident(a)}" for a in ("nw", "ga", "sw")))
+
+
 def phase_e(rng, dev, M, card, seed):
     """The superblock entry points; returns (max error, (ms, plain ms) at
     GA 80 x 70, the full-size run's launches)."""
@@ -419,7 +447,8 @@ def phase_e(rng, dev, M, card, seed):
     from sequencealigner_tpu_torch.ops import cuda_dp, geometry, superblock
     from sequencealigner_tpu_torch.ops import torch_dp
     from sequencealigner_tpu_torch.tools import fuzz_hw
-    from sequencealigner_tpu_torch.tools.profile_kernels import cuda_ms
+    from sequencealigner_tpu_torch.tools.profile_kernels import (
+        cuda_ms, grid_bound)
 
     B = geometry.LANE
     err, times = 0, None
@@ -441,18 +470,42 @@ def phase_e(rng, dev, M, card, seed):
                 raise AssertionError(f"(e) align_grid {algo} {Lc}x{Lk}")
             if algo == "ga" and (Lc, Lk) == (80, 70):
                 cells = int((l1.long() * l2.long()).sum())
+                b, by, traffic = grid_bound(
+                    l1.cpu().numpy(), l2.cpu().numpy(), S, W, Kpad, B, "ga")
                 times = (
                     cuda_ms(lambda: cuda_dp.align_grid(sk, l1, l2, g,
                                                        algo="ga"), 10),
                     cuda_ms(lambda: torch_dp.align_grid_plain(
                         sk, l1, l2, g, algo="ga"), 2),
-                    *bound(cells, [sk, l1, l2, g, got]),
+                    b, by,
                 )
                 log(f"(e) align_grid 80x70 GA kernel {times[0]:.4f} ms  "
-                    f"plain {times[1]:.4f} ms  bound {times[2]:.4f} ms "
-                    f"({times[3]}, {cells} cells)")
+                    f"plain {times[1]:.4f} ms  bound {b:.4f} ms ({by}, "
+                    f"{traffic['needed']} of the grid's {traffic['grid']} "
+                    f"bytes needed, {cells} cells)  share "
+                    f"{b / times[0]:.3f}")
         log(f"(e) align_grid and inline align_superblock {Lc}x{Lk} S={S}: "
-            "NW/GA/SW == plain (exact)")
+            "NW/GA/SW == plain (exact); " + grid_launch_line(sk))
+    forms = {cuda_dp.grid_launch_layout(sk, "ga")["form"]}
+    for lanes in GRID_LANES:
+        Lc, Lk, S = 70, 40, 2
+        s1, s2, l1, l2 = grid_block(rng, dev, S * lanes, Lc, Lk)
+        nb, Kpad, CD, W = geometry.geometry(Lc, Lk, lanes)
+        for algo, gaps in ALGO_GAPS:
+            sub, g = engine.from_reference_inputs(M.matrix, gaps, dev)
+            sk = superblock.build_stream(s1, s2, sub, S=S, B=lanes, Lc=Lc,
+                                         Lk=Lk, Kpad=Kpad, W=W)
+            got = cuda_dp.align_grid(sk, l1, l2, g, algo=algo)
+            torch.cuda.synchronize()
+            want = torch_dp.align_grid_plain(sk, l1, l2, g, algo=algo)
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"(e) align_grid {algo} B={lanes}")
+        forms.add(cuda_dp.grid_launch_layout(sk, "ga")["form"])
+        log(f"(e) align_grid {Lc}x{Lk} S={S} B={lanes}: NW/GA/SW == plain "
+            f"(exact); " + grid_launch_line(sk))
+    if forms != set(cuda_dp.GRID_FORMS):
+        raise AssertionError(f"(e) align_grid launched forms {forms}")
     Lc = Lk = 256
     nb, Kpad, CD, W = geometry.geometry(Lc, Lk, B)
     S = geometry.pick_S(B, Kpad, W)
@@ -482,14 +535,20 @@ def phase_e(rng, dev, M, card, seed):
     t_plain = cuda_ms(lambda: torch_dp.align_grid_plain(sk, l1, l2, g,
                                                         algo="ga"), 1)
     cells = int((l1.long() * l2.long()).sum())
-    b, by = bound(cells, [sk, l1, l2, g, grid])
+    b, by, traffic = grid_bound(l1.cpu().numpy(), l2.cpu().numpy(), S, W,
+                                Kpad, B, "ga")
+    wb, wby = bound(cells, [sk, l1, l2, g, grid])
     log(f"(e) align_superblock GA 256x256 S={S} ({S * B} pairs, "
         f"{sk.numel() / 2**30:.2f} GiB grid) on {card}: grid and inline == "
         f"plain (exact); build_stream {t_build:.4f} ms, align_grid "
         f"{t_grid:.4f} ms ({cells / t_grid / 1e6:.1f} GCUPS true, "
-        f"{sk.numel() / t_grid / 1e6:.1f} Gcell/s padded; bound {b:.4f} ms, "
-        f"{by}, share {b / t_grid:.3f}), inline {t_inline:.4f} ms, plain "
-        f"{t_plain:.4f} ms; launches {launches}")
+        f"{sk.numel() / t_grid / 1e6:.1f} Gcell/s padded, "
+        f"{traffic['copied'] / t_grid / 1e9:.3f} TB/s copied; bound "
+        f"{b:.4f} ms of the {traffic['needed']} bytes the lengths need in "
+        f"32-byte sectors, {by}, share {b / t_grid:.3f}; whole grid "
+        f"{wb:.4f} ms, {wby}, share {wb / t_grid:.3f}; copied "
+        f"{traffic['copied']} bytes), inline {t_inline:.4f} ms, plain "
+        f"{t_plain:.4f} ms; launches {launches}; {grid_launch_line(sk)}")
     del sk, grid, inline, want
     fuzz_hw.run(seed, 8, log=lambda m: log(f"(e) fuzz_hw {m}"))
     return err, times, launches

@@ -7,7 +7,8 @@
 //                   (per-pair mode: the engine's diagonal remainder and the
 //                   linear-v1 schedule)
 //   align_grid   <- pallas_dp.align_prebuilt (grid mode: per-pair sweep over
-//                   a prebuilt int8 score grid, ops/superblock.build_stream)
+//                   a prebuilt int8 score grid, ops/superblock.build_stream,
+//                   staged through shared memory by asynchronous copies)
 // All compute NW (linear gap), Gotoh GA and Smith-Waterman (affine) scores,
 // bit-exact to the reference recurrences (ops/oracle.py); the plain PyTorch
 // versions with the same contracts are in ops/torch_dp.py.
@@ -46,9 +47,9 @@
 //     one column's lookups index a single 25-entry row, chosen once per
 //     column from the column's letter (CodeScore: in tile mode the block's
 //     c-row code word, one per four columns; in per-pair mode the pair's own
-//     code bytes); grid mode instead reads its int8 grid laid out
-//     [s][column][row][lane], so a warp's reads of one cell are 32
-//     consecutive bytes (GridScore);
+//     code bytes); grid mode instead reads its int8 grid, laid out
+//     [s][column][row][lane], from a ring of stages in shared memory that
+//     a producer warp fills by asynchronous copies (RingScore, grid_kernel);
 //   - a thread stops at its own pair's lengths, so pad rows, pad columns and
 //     dummy descriptor rows cost nothing.
 // All three kernels run one sweep (dp_sweep, sweep_band, band_group),
@@ -71,9 +72,20 @@
 // pair in stripes of G bands, lane t holding band t, t column groups
 // behind lane t-1, from which it takes its band's top row by a warp
 // shuffle; only lane 0 reads and lane G-1 writes the crossing stream, one
-// row per group (split_sweep, sweep_stripe).  The grid kernel strides over
-// its items.  All kernels launch on the caller's stream, allocate nothing
-// and do not synchronise.
+// row per group (split_sweep, sweep_stripe).
+// Grid mode reads a byte per cell where the other modes read a code byte
+// per row and column, so it is bound by the bytes of its grid: 2 GiB for
+// 32,768 pairs of 256 x 256 (0.64 ms at 3.35 TB/s), where GA's true cells
+// need about 0.1 ms of arithmetic.  Its block is 128 consumer threads and one
+// producer warp that keeps a ring of stages (a group of four columns of
+// one band, 16 KB) in dynamic shared memory filled ahead of the sweep, by
+// one 1-D bulk copy a column where a column's rows are contiguous (B =
+// 128), else cp.async or byte loads as B's alignment allows; an mbarrier
+// per stage says when it is full, another when every consumer has released
+// it.  It copies no column past the block's longest l1 and no band past
+// its longest l2, and its grid is persistent too (align_dp_grid_resident).
+// All kernels launch on the caller's stream, allocate nothing and do not
+// synchronise.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -158,30 +170,148 @@ __device__ __forceinline__ CodeScore<KCode, CWord> code_score(
       kcode, cword, (unsigned)__cvta_generic_to_shared(subT), {}};
 }
 
-// From a prebuilt int8 grid (grid mode).  lane points at this pair's byte
-// of (column 0, row 0); columns are col_stride bytes apart, rows B.  Rows
-// at or beyond the pair's l2 are never read (their score is 0 and reaches
-// no result), so the grid's PAD_MARK cells cannot affect a score.  Each
-// column's 32 lookups are global loads; with a group's four columns
-// unrolled they cost grid mode about twice its own per-column loop's time
-// (PERF.md), and no engine path runs it.
-struct GridScore {
-  const int8_t* lane;
-  size_t col_stride;  // Kpad * B
-  int row_stride;     // B
-  int r0 = 0, nrows = 0, c0 = 0;
+// mbarrier, bulk-copy and cp.async forms of the grid kernel's ring.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// Blocks until the phase of parity `parity` of bar has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\t"
+      "bra LAB_WAIT;\n"
+      "DONE:\n\t}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, int count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// One 1-D bulk copy (the TMA unit, no descriptor) of `bytes` (a multiple of
+// 16; both addresses 16-byte aligned) that completes its bytes on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(N)
+               : "memory");
+}
+// Arrives on bar once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// The grid kernel's ring of stages in shared memory: a stage holds one
+// group of four columns of one band, KB rows x LANES lanes of int8 scores,
+// [column][row][lane].  Stage q of an item (q = band * groups + group, the
+// block's own band and group counts) is stage base + q of the block, in
+// ring slot (base + q) % STAGES; full[slot] completes when its copy has
+// landed, empty[slot] when its users have released it (the producer
+// arrives for the other consumer threads), and tag[slot] names the stage
+// the slot holds or is being filled with.  Four stages, 64 KB, leave room
+// for two blocks per SM; two stages ran slower, and eight fit one block.
+constexpr int STAGES = 4;
+constexpr int STAGE_BYTES = 4 * KB * LANES;
+// Dynamic shared memory: the 2 x STAGES barriers, then the ring.
+constexpr int RING_OFFSET = 2 * STAGES * (int)sizeof(uint64_t);
+constexpr int GRID_SMEM = RING_OFFSET + STAGES * STAGE_BYTES;
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  volatile unsigned* tag;  // the stage each slot holds or is filling
+  int8_t* data;
+
+  static __device__ __forceinline__ int slot(unsigned idx) {
+    return idx % STAGES;
+  }
+  static __device__ __forceinline__ unsigned parity(unsigned idx) {
+    return (idx / STAGES) & 1;
+  }
+};
+
+// From the ring (grid mode): a thread's consumer side.  A thread takes
+// only the stages its own lengths reach (the producer arrives on empty for
+// the others): group(g) releases the stage it swept last, then waits for
+// stage band * groups + g; band() and finish() release it too.  A wait on
+// a slot's full barrier goes by its phase parity, which tells only
+// neighbouring phases apart, and a thread may skip stages, so it first
+// waits for the slot's tag to name its stage: the producer sets it once
+// the slot's stage before has been released by all its users, so the slot
+// is then at most one phase behind.  The lanes of a warp meet at a
+// __syncwarp at the start of each band of the item (in finish() for the
+// bands a lane has not), so that a lane done with a band waits there
+// instead of spinning on the next band's stages beside the lanes still
+// sweeping.  Each user arrives on a stage's empty barrier once, by itself
+// (lanes of a warp release a stage at different sites, so no warp-wide
+// arrive could count on them being converged).  Rows at or past the pair's
+// l2 do not reach its score, so the grid's PAD_MARK cells and rows not
+// loaded cannot affect it.  A lookup is one
+// shared-memory byte load; a warp's 32 are consecutive bytes.
+struct RingScore {
+  Ring ring;
+  unsigned base;  // stages of the block's earlier items
+  int groups;     // column groups per band of this item
+  int lane;
+  int bnd = 0, held = -1, synced = 0;
+  const int8_t* stage = nullptr;
   const int8_t* col = nullptr;
 
-  __device__ __forceinline__ void band(int r0_, int l2) {
-    r0 = r0_;
-    nrows = l2 - r0_;
+  __device__ __forceinline__ void drop() {
+    if (held < 0) return;
+    mbar_arrive(&ring.empty[ring.slot(base + held)]);
+    held = -1;
   }
-  __device__ __forceinline__ void group(int g) { c0 = 4 * g; }
+  __device__ __forceinline__ void band(int r0, int) {
+    drop();
+    bnd = r0 / KB;
+    for (; synced <= bnd; ++synced) __syncwarp();
+  }
+  __device__ __forceinline__ void group(int g) {
+    drop();
+    held = bnd * groups + g;
+    const unsigned idx = base + held;
+    const int sl = ring.slot(idx);
+    while (ring.tag[sl] != idx) __nanosleep(20);
+    mbar_wait(&ring.full[sl], ring.parity(idx));
+    stage = ring.data + sl * STAGE_BYTES + lane;
+  }
   __device__ __forceinline__ void column(int j) {
-    col = lane + (size_t)(c0 + j) * col_stride + (size_t)r0 * row_stride;
+    col = stage + j * KB * LANES;
   }
-  __device__ __forceinline__ int at(int i) const {
-    return i < nrows ? (int)__ldg(col + i * row_stride) : 0;
+  __device__ __forceinline__ int at(int i) const { return col[i * LANES]; }
+  __device__ __forceinline__ void finish(int bands) {
+    drop();
+    for (; synced < bands; ++synced) __syncwarp();
   }
 };
 
@@ -577,30 +707,176 @@ pairs_kernel(const int8_t* __restrict__ mat_c, int wc,
   }
 }
 
-// Grid mode: item = (superblock row s, 128-lane chunk of its B pairs); lane
-// b of row s is pair s*B + b and reads sk[s][c-1][r][b].  Lengths are
-// clamped to the grid (l1 <= W, l2 <= Kpad is the caller's contract), so no
-// length can send a read outside it.
+// How the grid kernel's producer warp copies a stage (chosen by the wrapper
+// from B and the grid's base alignment, cuda_dp.grid_form): a piece is the
+// chunk's part of one row of one column, min(LANES, B - b0) bytes.
+enum {
+  FORM_BULK = 0,   // B == LANES: a column's rows are one contiguous run,
+                   // one bulk copy per column
+  FORM_ASYNC = 1,  // B % 4 == 0: cp.async of `unit` (16, 8 or 4) bytes,
+                   // the widest that B and the base allow
+  FORM_BYTES = 2,  // otherwise: plain byte loads and shared stores
+};
+
+// Stage q of an item, filled by the 32 lanes of the producer warp into
+// dst: columns 4g .. 4g+3 (none at or past L1) of band b, rows r0 ..
+// min(r0 + KB, Kpad) - 1.  item points at sk[s][0][0][b0].
+__device__ __forceinline__ void fill_stage(int form, int unit,
+                                           const int8_t* item, int Kpad,
+                                           int B, int width, int q,
+                                           int groups, int L1, int8_t* dst,
+                                           uint64_t* full, int wl) {
+  const int r0 = q / groups * KB, c0 = q % groups * 4;
+  const int rows = min(KB, Kpad - r0), ncols = min(4, L1 - c0);
+  const int pieces = ncols * rows;
+  auto src = [&](int j, int r) {
+    return item + ((size_t)(c0 + j) * Kpad + r0 + r) * B;
+  };
+  auto to = [&](int j, int r) { return dst + (j * KB + r) * LANES; };
+  if (form == FORM_BULK) {
+    if (wl == 0) {
+      mbar_expect_tx(full, pieces * LANES);
+      for (int j = 0; j < ncols; ++j)
+        bulk_copy(to(j, 0), src(j, 0), rows * LANES, full);
+    }
+  } else if (form == FORM_ASYNC) {
+    // The warp's lanes take the stage's copies in turn, piece by piece.
+    const int per = width / unit;
+    for (int t = wl; t < pieces * per; t += 32) {
+      const int pc = t / per, o = t % per * unit;
+      const int8_t* s = src(pc / rows, pc % rows) + o;
+      int8_t* d = to(pc / rows, pc % rows) + o;
+      if (unit == 16)
+        cp_async<16>(d, s);
+      else if (unit == 8)
+        cp_async<8>(d, s);
+      else
+        cp_async<4>(d, s);
+    }
+    cp_async_arrive(full);
+  } else {
+    for (int t = 0; t < pieces; ++t) {
+      const int8_t* s = src(t / rows, t % rows);
+      int8_t* d = to(t / rows, t % rows);
+      for (int o = wl; o < width; o += 32) d[o] = __ldg(s + o);
+    }
+    mbar_arrive(full);
+  }
+}
+
+// Grid mode: item = (superblock row s, 128-lane chunk b0 of its B pairs);
+// consumer thread b (threads 0..LANES-1) scores pair s*B + b0 + b, whose
+// scores of column c-1, row r are sk[s][c-1][r][b0 + b].  The block's last
+// warp is the producer: it walks the item's stages, as far as the block's
+// longest l1 and l2 reach, STAGES ahead of the consumers; once a
+// slot's stage before has been released, it tags the slot, copies the
+// stage if some consumer's lengths reach it, and arrives on empty for the
+// consumers they do not.  Lengths are clamped to the grid (l1 <= W, l2 <=
+// Kpad is the caller's contract), so no copy leaves it.  The grid is
+// persistent (SMs x resident blocks: two of 160 threads an SM for GA and
+// SW, three for NW); a block takes items from the device counter `next`.
 template <int ALGO>
-__global__ void __launch_bounds__(LANES)
+__global__ void __launch_bounds__(LANES + 32, 2)
 grid_kernel(const int8_t* __restrict__ sk, int S, int W, int Kpad, int B,
             const int* __restrict__ l1, const int* __restrict__ l2,
             const int* __restrict__ gaps, int* __restrict__ out,
-            int* __restrict__ scratch, int wmax) {
+            int* __restrict__ scratch, int wmax, int form, int unit,
+            int* __restrict__ next) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int claimed[2], longest[2][2];
+  // Bands and column groups each consumer's lengths reach, per item slot.
+  __shared__ int reach_b[2][LANES], reach_g[2][LANES];
+  __shared__ unsigned tags[STAGES];
+  Ring ring{reinterpret_cast<uint64_t*>(smem),
+            reinterpret_cast<uint64_t*>(smem) + STAGES, tags,
+            reinterpret_cast<int8_t*>(smem + RING_OFFSET)};
+  const int tid = threadIdx.x, wl = tid & 31;
+  const bool producer = tid >= LANES;
+  if (tid == 0) {
+    for (int k = 0; k < STAGES; ++k) {
+      mbar_init(&ring.full[k], form >= FORM_ASYNC ? 32 : 1);
+      mbar_init(&ring.empty[k], LANES);
+      tags[k] = ~0u;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   const int gap = gaps[0], opn = gaps[1], ext = gaps[2];
-  const int lane = threadIdx.x;
   int4* hs = crossing(scratch, wmax);
   int4* ys = hs + (size_t)(wmax / 4) * LANES;
   const int chunks = (B + LANES - 1) / LANES;
   const int items = S * chunks;
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int s = item / chunks;
-    const int b = item % chunks * LANES + lane;
-    if (b >= B) continue;
-    const size_t p = (size_t)s * B + b;
-    GridScore sc{sk + (size_t)s * W * Kpad * B + b, (size_t)Kpad * B, B};
-    out[p] = dp_sweep<ALGO>(min(l1[p], W), min(l2[p], Kpad), sc, gap, opn,
-                            ext, hs, ys);
+  unsigned base = 0;
+  // Two slots for the claimed item and its longest lengths: a slot is
+  // rewritten only after every thread has passed the barriers that follow
+  // its reads.
+  for (int k = 0;; k ^= 1) {
+    if (tid == 0) {
+      claimed[k] = atomicAdd(next, 1);
+      longest[k][0] = longest[k][1] = 0;
+    }
+    __syncthreads();
+    const int item = items - 1 - claimed[k];
+    if (item < 0) break;
+    const int s = item / chunks, b0 = item % chunks * LANES;
+    const size_t p = (size_t)s * B + b0 + tid;
+    int a1 = 0, a2 = 0;
+    if (!producer && b0 + tid < B) {
+      a1 = max(0, min(l1[p], W));
+      a2 = max(0, min(l2[p], Kpad));
+    }
+    int m1 = a1 > 0 && a2 > 0 ? a1 : 0, m2 = m1 ? a2 : 0;
+    if (!producer) {
+      reach_b[k][tid] = m1 ? (a2 + KB - 1) / KB : 0;
+      reach_g[k][tid] = m1 ? (a1 + 3) / 4 : 0;
+    }
+    for (int o = 16; o; o >>= 1) {
+      m1 = max(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+      m2 = max(m2, __shfl_xor_sync(0xffffffffu, m2, o));
+    }
+    if (wl == 0 && m1) {
+      atomicMax(&longest[k][0], m1);
+      atomicMax(&longest[k][1], m2);
+    }
+    __syncthreads();
+    const int L1 = longest[k][0], L2 = longest[k][1];
+    const int groups = (L1 + 3) / 4;
+    const int Q = groups * ((L2 + KB - 1) / KB);
+    if (producer) {
+      const int8_t* src = sk + (size_t)s * W * Kpad * B + b0;
+      const int width = min(LANES, B - b0);
+      int rb[LANES / 32], rg[LANES / 32];
+      for (int m = 0; m < LANES / 32; ++m) {
+        rb[m] = reach_b[k][wl + 32 * m];
+        rg[m] = reach_g[k][wl + 32 * m];
+      }
+      for (int q = 0; q < Q; ++q) {
+        const unsigned idx = base + q;
+        const int sl = ring.slot(idx);
+        if (idx >= (unsigned)STAGES)
+          mbar_wait(&ring.empty[sl], ring.parity(idx) ^ 1);
+        if (wl == 0) ring.tag[sl] = idx;
+        // The consumers whose lengths reach this stage: the warp arrives on
+        // empty for the others, and where none does, marks the stage full
+        // with nothing copied.
+        int c = 0;
+        for (int m = 0; m < LANES / 32; ++m)
+          c += rb[m] > q / groups && rg[m] > q % groups;
+        const int users = __reduce_add_sync(0xffffffffu, c);
+        if (users)
+          fill_stage(form, unit, src, Kpad, B, width, q, groups, L1,
+                     ring.data + sl * STAGE_BYTES, &ring.full[sl], wl);
+        else if (form >= FORM_ASYNC || wl == 0)
+          mbar_arrive(&ring.full[sl]);
+        if (wl == 0 && users < LANES)
+          mbar_arrive(&ring.empty[sl], LANES - users);
+      }
+    } else {
+      RingScore sc{ring, base, groups, tid};
+      const int v = dp_sweep<ALGO>(a1, a2, sc, gap, opn, ext, hs, ys);
+      sc.finish((L2 + KB - 1) / KB);
+      if (b0 + tid < B) out[p] = v;
+    }
+    base += Q;
   }
 }
 
@@ -702,27 +978,44 @@ int align_dp_pairs_resident(int algo, int split, int* blocks) {
 #undef PAIRS_OCC
 }
 
+// The grid kernel for algo, with its dynamic shared memory limit raised to
+// the ring's (above the default 48 KB), or nullptr.
+static const void* grid_function(int algo, int* err) {
+  const void* f = algo == NW   ? (const void*)grid_kernel<NW>
+                  : algo == GA ? (const void*)grid_kernel<GA>
+                  : algo == SW ? (const void*)grid_kernel<SW>
+                               : nullptr;
+  *err = (int)cudaErrorInvalidValue;
+  if (!f) return nullptr;
+  *err = (int)cudaFuncSetAttribute(
+      f, cudaFuncAttributeMaxDynamicSharedMemorySize, GRID_SMEM);
+  return *err ? nullptr : f;
+}
+
+// form and unit as cuda_dp.grid_form picks them; grid is SMs x
+// align_dp_grid_resident(algo) blocks, at most one per item, of LANES + 32
+// threads, and `next` an int32 zeroed on the stream.
 int align_dp_grid(const int8_t* sk, int S, int W, int Kpad, int B,
                   const int* l1, const int* l2, const int* gaps, int algo,
-                  int* out, int* scratch, int wmax, int grid, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (algo) {
-    case NW:
-      grid_kernel<NW><<<grid, LANES, 0, st>>>(sk, S, W, Kpad, B, l1, l2, gaps,
-                                              out, scratch, wmax);
-      break;
-    case GA:
-      grid_kernel<GA><<<grid, LANES, 0, st>>>(sk, S, W, Kpad, B, l1, l2, gaps,
-                                              out, scratch, wmax);
-      break;
-    case SW:
-      grid_kernel<SW><<<grid, LANES, 0, st>>>(sk, S, W, Kpad, B, l1, l2, gaps,
-                                              out, scratch, wmax);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+                  int* out, int* scratch, int wmax, int form, int unit,
+                  int* next, int grid, void* stream) {
+  int err;
+  const void* f = grid_function(algo, &err);
+  if (!f) return err;
+  if (form < FORM_BULK || form > FORM_BYTES) return (int)cudaErrorInvalidValue;
+  void* args[] = {&sk, &S, &W, &Kpad, &B, &l1, &l2, &gaps, &out,
+                  &scratch, &wmax, &form, &unit, &next};
+  return (int)cudaLaunchKernel(f, dim3(grid), dim3(LANES + 32), args,
+                               GRID_SMEM, static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks per SM of grid_kernel<algo>.
+int align_dp_grid_resident(int algo, int* blocks) {
+  int err;
+  const void* f = grid_function(algo, &err);
+  if (!f) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, f, LANES + 32, GRID_SMEM);
 }
 
 const char* align_dp_error_string(int err) {

@@ -11,20 +11,25 @@ check devices, dtypes, shapes and contiguity; the row indices inside
 them from the schedule), since reading them back would synchronise the
 stream.
 
-Grid and scratch: ``align_tiles`` and ``align_pairs`` launch a persistent
-grid of SMs x their kernel's resident blocks per SM (``tiles_resident``,
-``pairs_resident``: the CUDA occupancy query for its registers), whose
-blocks (tile kernel) or warps (per-pair kernel) take items from a device
-counter that the wrapper zeroes on the launch's stream, highest index
-first; ``align_grid`` launches up to ``BLOCKS_PER_SM`` blocks per SM that
-stride over their items.  Either way the grid is capped by the items, and
-each block owns one band-crossing scratch row of two int32 streams x the
+Grid and scratch: every kernel launches a persistent grid of SMs x its
+resident blocks per SM (``tiles_resident``, ``pairs_resident``,
+``grid_resident``: the CUDA occupancy query for its registers and shared
+memory), whose blocks (tile and grid kernels) or warps (per-pair kernel)
+take items from a device counter that the wrapper zeroes on the launch's
+stream, highest index first.  The grid is capped by the items, and each
+block owns one band-crossing scratch row of two int32 streams x the
 widest column count (rounded up to a group of four, the kernels' [column /
 4][slot][4] layout) x its stream slots, so the scratch is sized by the grid
 (at most ``SCRATCH_BYTES`` unless one block per SM needs more), never by
 the pair count.  The engine sends a combo's tiles in as few launches as the
 flush cap allows (``tiles_per_launch``), so that each launch keeps every
 resident block busy.
+
+Grid mode: ``align_grid``'s blocks stage the int8 grid through a ring of
+``GRID_STAGES`` stages of shared memory, copied by a producer warp in the
+form ``grid_form`` picks from B and the grid's base alignment (``bulk``: one
+bulk copy a column; ``async``: cp.async of 16, 8 or 4 bytes; ``bytes``:
+plain loads); ``grid_layout`` is the whole launch.
 
 Lanes per pair: ``align_pairs`` scores a pair with one lane (128 slots a
 block) or, where the launch has too few pairs to fill the card, with a
@@ -70,10 +75,15 @@ KB = 32
 #: an edge of about 500,000 columns is the most an 80 GB card admits (the
 #: kernels have no W_MAX; lengths and in-band offsets are int32).
 SCRATCH_BYTES = 2 << 30
-#: Blocks per SM the grid kernel's grid is sized for (the tile and per-pair
-#: kernels' grids are sized by their occupancy instead: tiles_resident,
-#: pairs_resident).
-BLOCKS_PER_SM = 8
+#: Ring stages of the grid kernel (csrc/align_dp.cu STAGES): a stage is one
+#: group of four columns of one KB-row band of 128 lanes.
+GRID_STAGES = 4
+#: Bytes of one stage, and the grid kernel's dynamic shared memory: the
+#: stages' two mbarriers of 8 bytes each, then the ring (GRID_SMEM).
+STAGE_BYTES = 4 * KB * LANE
+GRID_SMEM = 2 * GRID_STAGES * 8 + GRID_STAGES * STAGE_BYTES
+#: How the grid kernel copies a stage (csrc/align_dp.cu FORM_*).
+GRID_FORMS = ("bulk", "async", "bytes")
 #: Threads of a warp; the per-pair kernel's items are per warp.
 WARP = 32
 #: Most lanes per pair of the per-pair kernel's split form (one warp).
@@ -139,8 +149,12 @@ def load_library() -> ctypes.CDLL:
         lib.align_dp_pairs.restype = i
         lib.align_dp_pairs_resident.argtypes = [i, i, p]
         lib.align_dp_pairs_resident.restype = i
-        lib.align_dp_grid.argtypes = [p, i, i, i, i, p, p, p, i, p, p, i, i, p]
+        lib.align_dp_grid.argtypes = [
+            p, i, i, i, i, p, p, p, i, p, p, i, i, i, p, i, p,
+        ]
         lib.align_dp_grid.restype = i
+        lib.align_dp_grid_resident.argtypes = [i, p]
+        lib.align_dp_grid_resident.restype = i
         lib.align_dp_error_string.argtypes = [i]
         lib.align_dp_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -178,7 +192,7 @@ def _sms(dev) -> int:
 
 
 def _grid_and_scratch(items: int, wmax: int, banded: bool, dev,
-                      per_sm: int = BLOCKS_PER_SM):
+                      per_sm: int):
     """``launch_layout`` on ``dev``, with the scratch allocated.  The
     wrapper drops its reference right after the launch: the caching
     allocator hands the memory only to later work on the same stream."""
@@ -213,6 +227,53 @@ def pairs_resident(algo: str, split: bool) -> int:
         lambda lib, n: lib.align_dp_pairs_resident(ALGO_ID[algo],
                                                    int(split), n),
         "align_pairs occupancy query")
+
+
+def grid_resident(algo: str) -> int:
+    """Resident blocks per SM of the grid kernel for ``algo``, on the current
+    device."""
+    return _occupancy(
+        ("grid", torch.cuda.current_device(), algo),
+        lambda lib, n: lib.align_dp_grid_resident(ALGO_ID[algo], n),
+        "align_grid occupancy query")
+
+
+def grid_form(B: int, align: int) -> tuple:
+    """(form, copy unit in bytes) of the grid kernel for B lanes a
+    superblock row and a grid whose base address is a multiple of
+    ``align``: ``bulk`` where a column's rows of one chunk are contiguous
+    and 16-byte aligned (B = 128), else ``async`` (cp.async of the widest
+    of 16, 8 and 4 bytes that B and the base allow) or ``bytes``."""
+    a = 16
+    while B % a or align % a:
+        a //= 2
+    if a == 16 and B == LANE:
+        return "bulk", 16
+    if a >= 4:
+        return "async", a
+    return "bytes", 1
+
+
+def grid_layout(S: int, W: int, Kpad: int, B: int, align: int, sms: int,
+                resident: int) -> dict:
+    """One align_grid launch: its copy form and unit, ring stages, dynamic
+    shared memory, grid (SMs x ``resident`` blocks, at most one per item of
+    one superblock row's 128-lane chunk), scratch width and int32 count.
+    Pure: it depends on the shapes and the card only."""
+    form, unit = grid_form(B, align)
+    grid, wmax, n = launch_layout(S * -(-B // LANE), W, Kpad > KB, sms,
+                                  resident)
+    return {"form": form, "unit": unit, "stages": GRID_STAGES,
+            "smem": GRID_SMEM, "grid": grid, "wmax": wmax, "scratch": n}
+
+
+def grid_launch_layout(sk, algo: str) -> dict:
+    """``grid_layout`` of ``align_grid`` on the CUDA grid ``sk`` for
+    ``algo``, on sk's device."""
+    S, W, Kpad, B = sk.shape
+    with torch.cuda.device(sk.device):
+        return grid_layout(S, W, Kpad, B, sk.data_ptr() & -sk.data_ptr(),
+                           _sms(sk.device), grid_resident(algo))
 
 
 def pair_lanes(npairs: int, edge_k: int, sms: int, resident: int) -> int:
@@ -383,14 +444,17 @@ def align_grid(sk, l1, l2, gaps, *, algo: str):
         return out
     lib = load_library()
     with torch.cuda.device(dev):
-        grid, scratch, wmax = _grid_and_scratch(
-            S * -(-B // LANE), W, Kpad > KB, dev
-        )
+        lay = grid_launch_layout(sk, algo)
+        scratch = torch.empty(max(1, lay["scratch"]), dtype=torch.int32,
+                              device=dev)
+        # The work counter, zeroed on the launch's stream.
+        nxt = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.align_dp_grid(
             sk.data_ptr(), S, W, Kpad, B, l1.data_ptr(), l2.data_ptr(),
             gaps.data_ptr(), ALGO_ID[algo], out.data_ptr(),
-            scratch.data_ptr(), wmax, grid,
-            torch.cuda.current_stream(dev).cuda_stream,
+            scratch.data_ptr(), lay["wmax"], GRID_FORMS.index(lay["form"]),
+            lay["unit"], nxt.data_ptr(),
+            lay["grid"], torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "align_grid")
     align_grid.launches += 1

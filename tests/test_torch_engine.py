@@ -6,6 +6,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import sequencealigner_tpu as ref_pkg
 import sequencealigner_tpu_torch as port_pkg
@@ -18,6 +19,9 @@ from sequencealigner_tpu_torch import cli as port_cli
 from sequencealigner_tpu_torch import engine as port_engine
 from sequencealigner_tpu_torch.io.input import SequenceSet
 from sequencealigner_tpu_torch.io.output import OutputStore
+
+# One intra-op thread: the test workers share the CPU's cores.
+torch.set_num_threads(1)
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 M = ref_matrices.get("blosum62")

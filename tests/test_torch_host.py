@@ -7,6 +7,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from sequencealigner_tpu import matrices as ref_matrices
 from sequencealigner_tpu import scheduler as ref_scheduler
@@ -21,6 +22,9 @@ from sequencealigner_tpu_torch.io import dsv, fasta
 from sequencealigner_tpu_torch.io import input as sio
 from sequencealigner_tpu_torch.io.output import OutputStore
 from sequencealigner_tpu_torch.ops import geometry, oracle
+
+# One intra-op thread: the test workers share the CPU's cores.
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "sequencealigner_tpu_torch"

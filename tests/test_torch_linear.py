@@ -26,6 +26,9 @@ from sequencealigner_tpu_torch.io.input import SequenceSet
 from sequencealigner_tpu_torch.io.output import OutputStore
 from sequencealigner_tpu_torch.ops import cuda_dp, geometry
 
+# One intra-op thread: the test workers share the CPU's cores.
+torch.set_num_threads(1)
+
 M = ref_matrices.get("blosum62")
 ALGO_GAPS = [("nw", (-4, 0, 0)), ("ga", (0, -10, -1)), ("sw", (0, -9, -2))]
 AMINO = list(b"ARNDCQEGHILKMFPSTWYV")

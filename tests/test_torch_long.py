@@ -4,8 +4,13 @@ CPU's plain kernels, so under pytest-xdist's --dist loadfile it gets a
 worker to itself.
 """
 
+import torch
+
 import sequencealigner_tpu_torch as port_pkg
 from sequencealigner_tpu_torch import cli as port_cli
+
+# One intra-op thread: the test workers share the CPU's cores.
+torch.set_num_threads(1)
 
 
 def test_sequences_over_4096_through_align_and_cli(tmp_path):

@@ -21,6 +21,9 @@ from sequencealigner_tpu.ops import pallas_dp
 from sequencealigner_tpu_torch import engine as port_engine
 from sequencealigner_tpu_torch.ops import cuda_dp, geometry, torch_dp
 
+# One intra-op thread: the test workers share the CPU's cores.
+torch.set_num_threads(1)
+
 M = ref_matrices.get("blosum62")
 SUB_T, _ = port_engine.from_reference_inputs(M.matrix, (0, 0, 0), "cpu")
 SUB_J = jnp.asarray(SUB_T.numpy())

@@ -15,6 +15,9 @@ from sequencealigner_tpu_torch import engine as port_engine
 from sequencealigner_tpu_torch.ops import cuda_dp, geometry, torch_dp
 from sequencealigner_tpu_torch.tools.profile_main import proteins
 
+# One intra-op thread: the test workers share the CPU's cores.
+torch.set_num_threads(1)
+
 M = ref_matrices.get("blosum62")
 #: An H100: 132 SMs; resident blocks per SM of the GA/SW per-pair kernel in
 #: its one-lane and its split form (the occupancy query on the card).

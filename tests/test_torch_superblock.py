@@ -20,6 +20,9 @@ from sequencealigner_tpu.ops.xla_dp import padded_submatrix
 from sequencealigner_tpu_torch import engine as port_engine
 from sequencealigner_tpu_torch.ops import cuda_dp, geometry, superblock, torch_dp
 
+# One intra-op thread: the test workers share the CPU's cores.
+torch.set_num_threads(1)
+
 M = ref_matrices.get("blosum62")
 PAD = geometry.PAD
 B = geometry.LANE
@@ -184,29 +187,60 @@ def test_align_grid_routes_cpu_tensors_to_plain():
         )
 
 
+def _edge_lengths(rng, n, L, edge):
+    """n lengths in 1..edge: first every one of 1, 31, 32, 33 (KB and one
+    either side), L and edge, then random ones up to L."""
+    fixed = [x for x in (1, 31, 32, 33, L, edge) if x <= edge]
+    out = rng.integers(1, L + 1, n).astype(np.int32)
+    return fixed, out
+
+
+#: (Lc, Lk, S, B) of the card test: B = 128 (bulk copies), 256 (two
+#: chunks) and 48 (cp.async of 16 bytes), 100 and 200 (of 4 and 8 bytes),
+#: 130 (byte loads); one band, several bands, and Kpad = 64 rows.
+CARD_GRIDS = [(21, 13, 1, B), (80, 70, 3, B), (50, 45, 2, 100),
+              (70, 100, 2, 256), (40, 66, 1, 48), (33, 40, 1, 200),
+              (30, 35, 1, 130)]
+
+
 @pytest.mark.cuda
 def test_grid_kernel_matches_plain_on_card():
-    """The grid kernel and both superblock modes equal the plain versions on
-    the card (single and multi-band, S = 3, a lane count that is not a
-    multiple of 128); run on a machine with an NVIDIA GPU."""
+    """The grid kernel equals its plain version on the card in every copy
+    form (CARD_GRIDS), single and multi-band, at lengths 1, 31, 32, 33 and
+    at the grid's edges W and Kpad (whose PAD_MARK cells then count), for
+    NW, GA and SW; both superblock modes equal it at lengths within the
+    codes; run on a machine with an NVIDIA GPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    for Lc, Lk, S, nb_ in [(21, 13, 1, B), (80, 70, 3, B), (50, 45, 2, 100)]:
-        s1, s2, l1, l2 = (torch.from_numpy(a).to(dev)
-                          for a in _block(rng, S * nb_, Lc, Lk))
+    forms = set()
+    for Lc, Lk, S, nb_ in CARD_GRIDS:
+        n = S * nb_
+        s1, s2, l1, l2 = _block(rng, n, Lc, Lk)
         nb, Kpad, CD, W = geometry.geometry(Lc, Lk, nb_)
+        f1, e1 = _edge_lengths(rng, n, Lc, W)
+        f2, e2 = _edge_lengths(rng, n, Lk, Kpad)
+        grid_pairs = [(a, b) for a in f1 for b in f2]
+        assert len(grid_pairs) <= n
+        e1[: len(grid_pairs)] = [a for a, _ in grid_pairs]
+        e2[: len(grid_pairs)] = [b for _, b in grid_pairs]
+        s1, s2, l1, l2, e1, e2 = (torch.from_numpy(a).to(dev)
+                                  for a in (s1, s2, l1, l2, e1, e2))
+        forms.add(cuda_dp.grid_form(nb_, 256)[0])
         for algo, gaps in GAP_CASES:
             sub, g = port_engine.from_reference_inputs(M.matrix, gaps, dev)
             sk = superblock.build_stream(s1, s2, sub, S=S, B=nb_, Lc=Lc,
                                          Lk=Lk, Kpad=Kpad, W=W)
+            for a, b in ((l1, l2), (e1, e2)):
+                want = torch_dp.align_grid_plain(sk, a, b, g, algo=algo)
+                got = cuda_dp.align_grid(sk, a, b, g, algo=algo)
+                assert torch.equal(got, want), (algo, Lc, Lk, nb_)
             want = torch_dp.align_grid_plain(sk, l1, l2, g, algo=algo)
-            assert torch.equal(cuda_dp.align_grid(sk, l1, l2, g, algo=algo),
-                               want), (algo, Lc, Lk)
             for inline in (False, True):
                 got = superblock.align_superblock(
                     s1, s2, l1, l2, sub, g, algo=algo, Lc=Lc, Lk=Lk, B=nb_,
                     inline=inline,
                 )
-                assert torch.equal(got, want), (algo, Lc, Lk, inline)
+                assert torch.equal(got, want), (algo, Lc, Lk, nb_, inline)
+    assert forms == set(cuda_dp.GRID_FORMS)

@@ -5,6 +5,7 @@ the JAX package's CPU engine, exactly."""
 
 import numpy as np
 import pytest
+import torch
 
 from sequencealigner_tpu import engine as ref_engine
 from sequencealigner_tpu import matrices as ref_matrices
@@ -17,6 +18,9 @@ from sequencealigner_tpu_torch.io.input import SequenceSet
 from sequencealigner_tpu_torch.io.output import OutputStore
 from sequencealigner_tpu_torch.ops import cuda_dp, geometry
 from sequencealigner_tpu_torch.scheduler import Schedule
+
+# One intra-op thread: the test workers share the CPU's cores.
+torch.set_num_threads(1)
 
 M = ref_matrices.get("blosum62")
 ALGO_GAPS = [("nw", (-4, 0, 0)), ("ga", (0, -10, -1)), ("sw", (0, -9, -2))]

@@ -9,6 +9,9 @@ import torch
 
 from sequencealigner_tpu_torch.tools import dpx_rate, profile_main
 
+# One intra-op thread: the test workers share the CPU's cores.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("tool,argv", [
     (profile_main, ["--set", "main"]),
