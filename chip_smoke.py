@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py [--seed 0]
 
-It builds the CUDA kernels from csrc/ and goes through seven phases, each
+It builds the CUDA kernels from csrc/ and goes through nine phases, each
 printing its own lines; any failure raises, so the exit code is non-zero
 and no result line is printed.
 
@@ -62,7 +62,23 @@ and no result line is printed.
       bound, plus align() and the CLI on three sequences over
       4096 nt; and 512 proteins (lengths 50-500) under BLOSUM62 x 20 (GA
       10/1, |score| up to 220), 256 sampled pairs against plain; GCUPS of
-      both.
+      both;
+  (h) the -f similarity filter on the card: 16,384 proteins of 50-500
+      from --seed, of which 2,048 are near-copies of an earlier original
+      (at most 5% of positions substituted) and 256 prefix truncations of
+      one, at threshold 0.9: ``kept`` must be the originals exactly; the
+      same function on the CPU must equal the card on a 2,048-sequence
+      subset; seconds of both; then seqalign-torch -f 0.9 on that subset;
+  (i) checkpoint/resume on the card: (d)'s main set under tiles-v2 and
+      under linear-v1, each cut by limit_pairs at half the pairs into a
+      score store pre-filled with a sentinel (journal commits at every
+      flush), then resumed: the matrix must equal (d)'s, pairs plus
+      resumed pairs N(N-1)/2, some resumed, and the resumed run must
+      launch its kernels; seconds of each run.  Then seqalign-torch -k
+      twice on 300 proteins (the second run prints "Resuming" and writes
+      the same output), and once with -t DIR, whose trace must name the
+      tile kernel's CUDA symbol.  Every CLI run fails its phase if it
+      prints "No CUDA device found".
 
 The second-to-last lines are the kernels' JSON record and the card's
 nvidia-smi line; the last line is the JSON result.  It needs no network and
@@ -72,6 +88,9 @@ no JAX, and exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib.util
+import io
 import json
 import subprocess
 import sys
@@ -295,6 +314,22 @@ def check_call(name, kern, plain, args, sub, g, algo, label, cells, err,
             f"  share {b / t_k:.3f}")
 
 
+def cli(args, label, **kw):
+    """seqalign-torch in a subprocess on the card: rc 0, and never the
+    no-device warning (which would mean the CPU ran)."""
+    r = subprocess.run(
+        [sys.executable, "-m", "sequencealigner_tpu_torch.cli", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=300, **kw,
+    )
+    if r.returncode != 0 or NO_CUDA in r.stdout + r.stderr:
+        raise AssertionError(f"{label} failed:\n{r.stdout}{r.stderr}")
+    return r
+
+
+#: The CLI's warning when it finds no CUDA device (it then asks for -C).
+NO_CUDA = "No CUDA device found"
+
+
 def phase_c(dev, M):
     from sequencealigner_tpu_torch import align
     from sequencealigner_tpu_torch.ops import oracle
@@ -313,14 +348,8 @@ def phase_c(dev, M):
                     raise AssertionError(f"align {algo} pair {i},{j}")
         log(f"(c) align() {algo} on peptides.fasta: {len(seqs)} sequences, "
             f"{len(seqs) * (len(seqs) - 1) // 2} pairs == oracle")
-    r = subprocess.run(
-        [sys.executable, "-m", "sequencealigner_tpu_torch.cli", "-i",
-         "examples/peptides.fasta", "-m", "blosum62", "-a", "ga", "-s", "10",
-         "-e", "1", "-W", "-F", "-P"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300,
-    )
-    if r.returncode != 0:
-        raise AssertionError(f"seqalign-torch failed:\n{r.stdout}{r.stderr}")
+    cli(["-i", "examples/peptides.fasta", "-m", "blosum62", "-a", "ga", "-s",
+         "10", "-e", "1", "-W", "-F", "-P"], "(c) seqalign-torch")
     log("(c) seqalign-torch -i examples/peptides.fasta -a ga -W -F: rc 0")
 
 
@@ -648,15 +677,8 @@ def phase_g(rng, dev, card):
     with tempfile.TemporaryDirectory() as td:
         fa = Path(td) / "long.fasta"
         fa.write_text("".join(f">s{k}\n{s}\n" for k, s in enumerate(few)))
-        r = subprocess.run(
-            [sys.executable, "-m", "sequencealigner_tpu_torch.cli", "-i",
-             str(fa), "-m", "nuc44", "-a", "sw", "-s", "10", "-e", "1", "-W",
-             "-F", "-P"], cwd=ROOT, capture_output=True, text=True,
-            timeout=300,
-        )
-    if r.returncode != 0:
-        raise AssertionError(f"seqalign-torch long failed:\n{r.stdout}"
-                             f"{r.stderr}")
+        cli(["-i", str(fa), "-m", "nuc44", "-a", "sw", "-s", "10", "-e", "1",
+             "-W", "-F", "-P"], "(g) seqalign-torch long")
     log(f"(g) align() on {len(few)} sequences over {geometry.W_MAX} nt == "
         "plain; seqalign-torch -m nuc44 -a sw -W on them: rc 0")
     blosum = matrices.get("blosum62")
@@ -670,6 +692,236 @@ def phase_g(rng, dev, card):
                  "(g) wide")
     log(f"(g) wide: max |score| {int(np.abs(wide).max())}, 256 sampled pairs"
         f" == plain version on the card; {stats.gcups:.2f} GCUPS")
+
+
+def filter_set(rng, n=16384, copies=2048, prefixes=256):
+    """n proteins of 50-500: ``copies`` near-copies (at most 5% of
+    positions substituted) and ``prefixes`` prefix truncations (50 or
+    more residues) of an earlier original, the rest originals.  Returns
+    (sequences, original indices in order)."""
+    from sequencealigner_tpu_torch.tools.profile_main import RESIDUES
+
+    derived = np.sort(rng.choice(np.arange(n // 16, n), copies + prefixes,
+                                 replace=False))
+    kind = np.zeros(n, np.int8)
+    kind[derived] = 1
+    kind[rng.choice(derived, prefixes, replace=False)] = 2
+    seqs, originals = [], []
+    for i in range(n):
+        if kind[i] == 0:
+            originals.append(i)
+            seqs.append(rng.choice(RESIDUES, int(rng.integers(50, 501))))
+            continue
+        src = seqs[originals[int(rng.integers(0, len(originals)))]]
+        if kind[i] == 2:
+            seqs.append(src[: int(rng.integers(50, len(src) + 1))].copy())
+            continue
+        s = src.copy()
+        for q in rng.choice(len(s), int(rng.integers(0, len(s) // 20 + 1)),
+                            replace=False):
+            s[q] = rng.choice(RESIDUES[RESIDUES != s[q]])
+        seqs.append(s)
+    return seqs, np.asarray(originals, np.int64)
+
+
+def write_fasta(path: Path, seqs) -> None:
+    path.write_text("".join(f">s{k}\n{s.tobytes().decode()}\n"
+                            for k, s in enumerate(seqs)))
+
+
+def phase_h(rng, dev, M, card):
+    """The similarity filter on the card; returns its seconds."""
+    from sequencealigner_tpu_torch.filter import filter_sequences
+    from sequencealigner_tpu_torch.io.input import SequenceSet
+
+    seqs, originals = filter_set(rng)
+    ss = SequenceSet.from_list(seqs, M.lut)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, dropped = filter_sequences(ss, 0.9, progress=False, device=dev)
+    secs = time.perf_counter() - t0
+    if not np.array_equal(out.kept, originals) or dropped != len(seqs) - len(
+            originals):
+        raise AssertionError(f"(h) filter kept {out.num}, dropped {dropped}; "
+                             f"constructed originals {len(originals)}")
+    log(f"(h) filter 0.9 on {card}: {len(seqs)} proteins of 50-500, "
+        f"{dropped} dropped (2048 near-copies, 256 prefixes), kept == the "
+        f"constructed originals exactly; {secs:.3f} s")
+    sub = SequenceSet.from_list(seqs[:2048], M.lut)
+    t0 = time.perf_counter()
+    got, d_card = filter_sequences(sub, 0.9, progress=False, device=dev)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, d_cpu = filter_sequences(sub, 0.9, progress=False, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    if d_card != d_cpu or not np.array_equal(got.kept, want.kept):
+        raise AssertionError("(h) card != CPU on the 2,048 subset")
+    expect = int((originals < 2048).sum())
+    if len(got.kept) != expect:
+        raise AssertionError(f"(h) subset kept {len(got.kept)} != {expect}")
+    with tempfile.TemporaryDirectory() as td:
+        fa = Path(td) / "subset.fasta"
+        write_fasta(fa, seqs[:2048])
+        r = cli(["-i", str(fa), "-m", "blosum62", "-a", "ga", "-s", "10",
+                 "-e", "1", "-f", "0.9", "-W", "-F", "-P"], "(h) -f 0.9")
+    if f"Filtered out {d_card} sequences" not in r.stdout:
+        raise AssertionError(f"(h) CLI -f 0.9:\n{r.stdout}")
+    log(f"(h) 2,048-sequence subset: card == CPU ({d_card} dropped), card "
+        f"{t_card:.3f} s, CPU {t_cpu:.3f} s; seqalign-torch -f 0.9 on it: "
+        f"rc 0, \"Filtered out {d_card} sequences\"")
+    return secs
+
+
+def resume_run(eng, ss, td, tag):
+    """One run cut by limit_pairs at half the pairs into a sentinel-filled
+    persistent store (commits at every flush), then resumed; returns
+    (matrix, interrupted stats, resumed stats, resumed launches)."""
+    from sequencealigner_tpu_torch import checkpoint, engine
+    from sequencealigner_tpu_torch.io.output import OutputStore
+
+    n = ss.num
+    total = n * (n - 1) // 2
+    jpath, spath = Path(td) / f"{tag}.ckpt", Path(td) / f"{tag}.scores"
+    pre = checkpoint.persistent_array(spath, total)
+    pre[:] = -777
+    pre.flush()
+    del pre
+    header = checkpoint.config_fingerprint(
+        algo="ga", gaps=(0, -10, -1), matrix="blosum62", num_seqs=n,
+        lengths=ss.lengths, triangular=True, data=ss.data,
+        schedule=eng.schedule_token(ss.lengths))
+    engine.SYNC_INTERVAL = 0.0
+    runs = []
+    for limit in (total // 2, None):
+        store = OutputStore(n, triangular=True, spill=False,
+                            persist_path=spath)
+        journal = checkpoint.Journal(jpath, header)
+        zero_launches()
+        stats = eng.align_all(ss, store, progress=False, journal=journal,
+                              limit_pairs=limit)
+        journal.close()
+        # Pairs the run left unwritten (none after the resumed run).
+        left = int((np.asarray(store.matrix) == -777).sum())
+        runs.append((stats, read_launches(), left))
+    (cut, _, left), (res, launches, rest) = runs
+    if rest or not left or res.pairs_resumed <= 0 or res.pairs + res.pairs_resumed != \
+            total or cut.pairs + res.pairs != total:
+        raise AssertionError(f"(i) {tag}: pairs {cut.pairs}/{res.pairs}/"
+                             f"{res.pairs_resumed}, {left} sentinels")
+    return store.rows(0, n), cut, res, launches, left
+
+
+class StandInWriter:
+    """Where h5py is not installed, the CLI's HDF5 writer is replaced by
+    a NumPy file of the same two datasets (``/sequences`` and
+    ``/similarity_matrix`` as hdf5_io.write fills them)."""
+
+    def __init__(self):
+        from sequencealigner_tpu_torch.io import hdf5_io
+
+        self.mod, self.real = hdf5_io, hdf5_io.write
+
+    def __enter__(self):
+        def write(path, store, seqs, **kw):
+            with open(path, "wb") as f:
+                np.savez(f, sequences=np.array(
+                    [seqs.get_str(i) for i in range(seqs.num)]),
+                    similarity_matrix=store.rows(0, store.dim))
+        self.mod.write = write
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.write = self.real
+
+
+def read_output(path: Path):
+    try:
+        import h5py
+    except ImportError:
+        with np.load(path) as z:
+            return list(z["sequences"]), z["similarity_matrix"]
+    with h5py.File(path) as f:
+        return (list(f["/sequences"].asstr()),
+                f["/similarity_matrix"][...])
+
+
+def cli_in_process(argv, label):
+    """seqalign-torch in this process (so a missing h5py can be stood in
+    for); returns its standard output."""
+    from sequencealigner_tpu_torch import cli as port_cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = port_cli.run(argv)
+    text = out.getvalue() + err.getvalue()
+    if rc != 0 or NO_CUDA in text:
+        raise AssertionError(f"{label}: rc {rc}\n{text}")
+    return out.getvalue()
+
+
+def phase_i(rng, dev, M, raw, tiles_mat, card):
+    """Checkpoint/resume on the card; returns the seconds of each run."""
+    from sequencealigner_tpu_torch import engine
+    from sequencealigner_tpu_torch.io.input import SequenceSet
+    from sequencealigner_tpu_torch.tools import profile_main
+    from sequencealigner_tpu_torch.tools.profile_main import proteins
+
+    ss = SequenceSet.from_list(raw, M.lut)
+    secs = {}
+    sync = engine.SYNC_INTERVAL
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            for tag, eng in (
+                ("tiles-v2", engine.Engine("ga", M.matrix, (0, -10, -1),
+                                           device=dev)),
+                ("linear-v1", profile_main.linear_engine(
+                    "ga", M.matrix, (0, -10, -1), dev)),
+            ):
+                mat, cut, res, launches, left = resume_run(eng, ss, td, tag)
+                if not np.array_equal(mat, tiles_mat):
+                    raise AssertionError(f"(i) {tag}: resumed != (d)")
+                used = "align_tiles" if tag == "tiles-v2" else "align_pairs"
+                if not launches[used] or not launches["align_pairs"]:
+                    raise AssertionError(f"(i) {tag}: launches {launches}")
+                secs[tag] = (cut.seconds, res.seconds)
+                log(f"(i) {tag} on {card}: cut at half: {cut.pairs} pairs "
+                    f"in {cut.seconds:.3f} s ({left} sentinel entries left); "
+                    f"resumed: {res.pairs_resumed} pairs from the journal, "
+                    f"{res.pairs} computed in {res.seconds:.3f} s, launches "
+                    f"{launches}; matrix == (d)'s uninterrupted run")
+    finally:
+        engine.SYNC_INTERVAL = sync
+    few = proteins(rng, 300, 50, 500)
+    h5py = importlib.util.find_spec("h5py") is not None
+    with tempfile.TemporaryDirectory() as td, (
+            contextlib.nullcontext() if h5py else StandInWriter()):
+        fa = Path(td) / "few.fasta"
+        write_fasta(fa, few)
+        base = ["-i", str(fa), "-m", "blosum62", "-a", "ga", "-s", "10",
+                "-e", "1", "-F", "-P", "-k", str(Path(td) / "run.ckpt")]
+        first = cli_in_process(base + ["-o", str(Path(td) / "a.h5")],
+                               "(i) -k first")
+        second = cli_in_process(base + ["-o", str(Path(td) / "b.h5")],
+                                "(i) -k second")
+        a, b = (read_output(Path(td) / x) for x in ("a.h5", "b.h5"))
+        if "Resuming" in first or "Resuming:" not in second or a[0] != b[0] \
+                or not np.array_equal(a[1], b[1]):
+            raise AssertionError("(i) -k twice: no resume or outputs differ")
+        resumed = next(ln for ln in second.splitlines() if "Resuming" in ln)
+        trace = Path(td) / "trace"
+        cli(["-i", str(fa), "-m", "blosum62", "-a", "ga", "-s", "10", "-e",
+             "1", "-W", "-F", "-P", "-t", str(trace)], "(i) -t")
+        files = sorted(trace.glob("*.json"))
+        if not files or "tiles_kernel" not in files[0].read_text():
+            raise AssertionError(f"(i) -t: no tiles_kernel in {files}")
+        traced = f"{files[0].name} ({files[0].stat().st_size} bytes)"
+    writer = "HDF5" if h5py else (
+        "output (h5py is not installed here: a NumPy file of the same two "
+        "datasets)")
+    log(f"(i) seqalign-torch -k twice on 300 proteins: the second run "
+        f"printed \"{resumed.strip('• ')}\" and wrote the same {writer}; "
+        f"-t: {traced} names tiles_kernel")
+    return secs
 
 
 def main() -> int:
@@ -709,6 +961,15 @@ def main() -> int:
     launches["align_grid"] = grid_launches["align_grid"]
     phase_f(dev, M, main_set, tiles_mat, card)
     phase_g(rng, dev, card)
+    t0 = time.perf_counter()
+    filter_s = phase_h(rng, dev, M, card)
+    log(f"(h) phase seconds {time.perf_counter() - t0:.1f} on {card} "
+        f"(filter {filter_s:.3f} s)")
+    t0 = time.perf_counter()
+    resume_s = phase_i(rng, dev, M, main_set, tiles_mat, card)
+    log(f"(i) phase seconds {time.perf_counter() - t0:.1f} on {card} "
+        "(cut, resumed run): " + ", ".join(
+            f"{k} {a:.3f} s, {b:.3f} s" for k, (a, b) in resume_s.items()))
     # ms / plain_ms / bound_ms: GA at (b)'s multi-tile shape (one launch as
     # the engine sends a combo) for the tile kernel, at (b)'s multi-band 160
     # shape for the per-pair kernel and at (e)'s 80 x 70 shape for the grid

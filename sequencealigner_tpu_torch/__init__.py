@@ -14,6 +14,7 @@ def align(
     gap: int = 4,
     open: int = 10,
     extend: int = 1,
+    filter_threshold: float = 0.0,
     device: str = "cuda",
     progress: bool = False,
 ):
@@ -23,13 +24,16 @@ def align(
     | "ga" | "sw" (affine, use ``open``/``extend``).  Penalties are positive
     magnitudes, negated internally like the CLI.  device: "cuda" (the
     kernels) or "cpu" (their plain PyTorch versions).  Returns an (n, n)
-    int32 NumPy array (0 on the diagonal).
+    int32 NumPy array (0 on the diagonal); with filter_threshold > 0 returns
+    (matrix, kept_indices) instead, the matrix over the survivors of the
+    similarity filter (filter.filter_sequences).
 
     >>> import sequencealigner_tpu_torch as sa
     >>> m = sa.align(["ARNDCQ", "ARNDCC"], algo="nw", gap=4, device="cpu")
     """
     import numpy as np
 
+    from . import filter as _filter
     from . import matrices as _matrices
     from .engine import Engine
     from .io.input import SequenceSet
@@ -53,6 +57,12 @@ def align(
                 f"{matrix!r}"
             )
     ss = SequenceSet.from_list(seqs, m.lut)
+    kept = None
+    if filter_threshold > 0.0:
+        ss, _dropped = _filter.filter_sequences(
+            ss, filter_threshold, progress=progress, device=device
+        )
+        kept = ss.kept
     if algo == "nw":
         gaps = (-abs(int(gap)), 0, 0)
     else:
@@ -60,4 +70,7 @@ def align(
     store = OutputStore(ss.num, triangular=False, spill=False)
     eng = Engine(algo, m.matrix, gaps, device=device)
     eng.align_all(ss, store, progress=progress)
-    return np.asarray(store.matrix).reshape(ss.num, ss.num)
+    out = np.asarray(store.matrix).reshape(ss.num, ss.num)
+    if filter_threshold > 0.0:
+        return out, kept
+    return out

@@ -4,9 +4,10 @@ Port of ``sequencealigner_tpu/cli.py``: the same flag surface, relations,
 prompts and main() flow (parse/validate -> header -> configuration actions
 -> read dataset -> prepare matrix store -> align -> HDF5 -> benchmark
 summary).  The engine runs the CUDA kernels; -C runs their plain PyTorch
-versions on the host CPU.  With no CUDA device and no -C the run stops: it
-never carries on on the CPU unasked.  -f, -k, -t and multi-host runs are
-not ported yet and exit 1.
+versions on the host CPU.  With no CUDA device and no -C the run warns and
+asks, as the reference does, whether to use the CPU instead (-F answers
+yes).  -t writes a torch.profiler trace of the alignment phase.  Multi-host
+runs are not ported yet and exit 1.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ class Config:
     threads: int = 0
     no_device: bool = False  # -C
     no_write: bool = False  # -W
-    checkpoint: str = ""  # -k (not yet ported)
-    trace_dir: str = ""  # -t (not yet ported)
+    checkpoint: str = ""  # -k
+    trace_dir: str = ""  # -t
 
 
 ALGOS = {
@@ -292,7 +293,7 @@ def build_registry(cfg: Config) -> Registry:
     reg.register(
         Argument(
             name="trace", opt="t", lopt="trace", param="DIR",
-            help="Write a profiler trace of the alignment phase to DIR (not yet ported)",
+            help="Write a profiler trace of the alignment phase to DIR",
             parse=parse_trace,
             action=lambda: ui.pinfom("Profiler trace: %s", cfg.trace_dir),
             action_phase="if_set",
@@ -361,13 +362,6 @@ def build_registry(cfg: Config) -> Registry:
     return reg
 
 
-#: Flags of the reference that the port does not run yet, with the ROADMAP
-#: item that ports each.
-NOT_PORTED = (
-    ("filter_threshold", "-f", "A10"),
-    ("checkpoint", "-k", "A11"),
-    ("trace", "-t", "A14"),
-)
 #: Environment of a multi-host run (reference parallel/multihost.py).
 MULTIHOST_ENV = ("SEQALIGN_TPU_COORDINATOR", "SEQALIGN_TPU_DISTRIBUTED")
 
@@ -404,10 +398,6 @@ def run(argv: list[str] | None = None) -> int:
         ui.perr(str(e))
         ui.pinfo("Use %s -h, --help for usage information", prog)
         return 1
-    for name, flag, item in NOT_PORTED:
-        if reg.args[name].is_set:
-            ui.perr("%s is not yet ported (ROADMAP %s)", flag, item)
-            return 1
     if any(os.environ.get(v) for v in MULTIHOST_ENV):
         ui.perr("Multi-host runs are not yet ported (ROADMAP A13)")
         return 1
@@ -418,6 +408,7 @@ def run(argv: list[str] | None = None) -> int:
     ui.psection("Configuration")
     reg.actions()
 
+    from . import filter as filt
     from .engine import Engine
     from .io import hdf5_io
     from .io import input as sio
@@ -427,6 +418,20 @@ def run(argv: list[str] | None = None) -> int:
     try:
         with bench.phase("input"):
             ss = sio.load(cfg.input_path, cfg.matrix.lut, gap_pen=cfg.gap_pen)
+        if cfg.filter_threshold > 0.0:
+            if not device_ready(cfg):
+                return 1
+            with bench.phase("filter"):
+                ss, dropped = filt.filter_sequences(
+                    ss, cfg.filter_threshold,
+                    progress=not reg.args["disable_progress"].is_set,
+                    device="cpu" if cfg.no_device else "cuda",
+                )
+            ui.pinfo("Filtered out %d sequences", dropped)
+            if ss.num < sio.SEQ_N_MIN:
+                ui.perr("Not enough sequences: %d (min: %d)", ss.num, sio.SEQ_N_MIN)
+                return 1
+            bench.phase_print("filter")
         avg = float(ss.lengths.mean()) if ss.num else 0.0
         ui.pinfo("Loaded %d sequences", ss.num)
         ui.pinfol("Average sequence length: %.2f", avg)
@@ -438,30 +443,69 @@ def run(argv: list[str] | None = None) -> int:
         return 1
 
     store = None
+    journal = None
     if not cfg.no_write:
         ui.psection("Preparing Similarity Matrix")
         with bench.phase("output"):
+            persist = cfg.checkpoint + ".scores" if cfg.checkpoint else None
             # Same stable length sort as Schedule.build: a spilling store
             # lays the packed triangle out in sorted coordinates.
             import numpy as np
 
             perm = np.argsort(ss.lengths, kind="stable")
-            store = OutputStore.plan(ss.num, perm=perm)
+            store = OutputStore.plan(ss.num, persist_path=persist, perm=perm)
     ui.psection("Performing Alignments")
-    import torch
-
-    if not cfg.no_device and not torch.cuda.is_available():
-        ui.perr("No CUDA device found (use -C to run on the CPU)")
+    if not device_ready(cfg):
         return 1
     gaps = (cfg.gap_pen, cfg.gap_opn, cfg.gap_ext)
     engine = Engine(
         cfg.algo, cfg.matrix.matrix, gaps,
         device="cpu" if cfg.no_device else "cuda",
     )
-    with bench.phase("align"):
-        stats = engine.align_all(
-            ss, store, progress=not reg.args["disable_progress"].is_set
+    if cfg.checkpoint and store is not None:
+        # The fingerprint binds the engine's block-schedule geometry: the
+        # journal's block indices mean the same pairs only under it.
+        from . import checkpoint as ckpt
+
+        header = ckpt.config_fingerprint(
+            algo=cfg.algo, gaps=gaps,
+            matrix=cfg.matrix.name, num_seqs=ss.num,
+            lengths=ss.lengths, triangular=store.triangular,
+            data=ss.data,
+            schedule=engine.schedule_token(ss.lengths),
         )
+        try:
+            journal = ckpt.Journal(cfg.checkpoint, header)
+        except ckpt.CheckpointError as e:
+            ui.perr(str(e))
+            return 1
+        if journal.done:
+            ui.pinfo("Resuming: %d pair blocks already complete",
+                     len(journal.done))
+    prof = None
+    if cfg.trace_dir:
+        import torch
+        from torch import profiler
+
+        acts = [profiler.ProfilerActivity.CPU]
+        if not cfg.no_device:
+            acts.append(profiler.ProfilerActivity.CUDA)
+        prof = profiler.profile(
+            activities=acts,
+            on_trace_ready=profiler.tensorboard_trace_handler(cfg.trace_dir),
+        )
+        prof.start()
+    try:
+        with bench.phase("align"):
+            stats = engine.align_all(
+                ss, store, progress=not reg.args["disable_progress"].is_set,
+                journal=journal,
+            )
+    finally:
+        if prof is not None:
+            if not cfg.no_device:
+                torch.cuda.synchronize()
+            prof.stop()
     bench.note_cells(stats.cells)
     bench.phase_print("align")
 
@@ -473,9 +517,27 @@ def run(argv: list[str] | None = None) -> int:
                 progress=not reg.args["disable_progress"].is_set,
             )
         bench.phase_print("output")
+        if journal is not None:
+            journal.close()
 
     bench.total_print(alignments(ss.num))
     return 0
+
+
+def device_ready(cfg: Config) -> bool:
+    """The card, or the CPU once asked: without a CUDA device and without
+    -C, warn and ask as the reference does (its cuda_device_init fallback;
+    -F answers yes); yes sets -C.  False when the answer is no."""
+    import torch
+
+    if cfg.no_device or torch.cuda.is_available():
+        return True
+    ui.pwarn("No CUDA device found")
+    if not ui.print_Yn("Do you want to use the CPU instead?"):
+        ui.perr("Failed to initialize CUDA device")
+        return False
+    cfg.no_device = True
+    return True
 
 
 def main() -> None:

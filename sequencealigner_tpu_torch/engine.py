@@ -25,8 +25,13 @@ progress.
 On ``device="cpu"`` the same schedules run through the kernels' plain
 PyTorch versions (the -C path, and what the CPU tests drive).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-checkpoint journals (A11) and multi-host partitions and mergers (A13).
+Checkpoint journals (checkpoint.Journal) record the global index of every
+block the schedule yields, in schedule order, as the reference numbers
+them; launch grouping changes no index, so a journal of either package
+resumes in the other under the same schedule token.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP item):
+multi-host partitions and mergers (A13).
 """
 
 from __future__ import annotations
@@ -52,6 +57,13 @@ ALGOS = ("nw", "ga", "sw")
 
 #: Pairs in flight before a flush (bounds host memory for block metadata).
 FLUSH_PAIRS = int(os.environ.get("SEQALIGN_TPU_FLUSH_PAIRS", 1 << 22))
+
+#: Seconds between checkpoint sync points (journal runs only): each one
+#: msyncs the persistent store, then commits the block ids flushed since the
+#: last.  Syncing every flush rewrites nearly the whole store file at flush
+#: cadence (one flush's scatter dirties most of its pages); the interval
+#: bounds the machine-crash window instead.  0 syncs at every flush.
+SYNC_INTERVAL = float(os.environ.get("SEQALIGN_TPU_SYNC_INTERVAL", 300.0))
 
 assert TILE_S == geometry.S_TILE and TILE_B == geometry.LANE
 
@@ -110,6 +122,7 @@ class AlignStats:
     pairs: int = 0
     cells: int = 0
     seconds: float = 0.0
+    pairs_resumed: int = 0  # skipped: their blocks were journaled
 
     @property
     def gcups(self) -> float:
@@ -222,9 +235,10 @@ class Engine:
         return (Lc + Lk) * step < 32767
 
     def _enqueue(self, dev: torch.Tensor, part: list, pending: list) -> None:
-        """Narrowed scores -> host.  On CUDA the copy goes to pinned memory
-        on the dispatch stream and an event marks its completion, so the
-        flusher waits only for this dispatch."""
+        """Narrowed scores of ``part``, a list of (global block index,
+        block), -> host.  On CUDA the copy goes to pinned memory on the
+        dispatch stream and an event marks its completion, so the flusher
+        waits only for this dispatch."""
         flat = dev.reshape(-1)
         event = None
         if self._cuda:
@@ -250,10 +264,10 @@ class Engine:
         return geometry.pick_T(Lc, Lk)
 
     def _dispatch_tiles(self, blks: list, ctx: tuple, pending: list) -> None:
-        """One tile-kernel launch for a group of tiles: the only upload is
-        the (T, 2) int32 descriptor array."""
+        """One tile-kernel launch for a group of (index, tile): the only
+        upload is the (T, 2) int32 descriptor array."""
         cw, km, kl, Lc, Lk = ctx
-        desc = np.asarray([blk.desc for blk in blks], np.int32)
+        desc = np.asarray([blk.desc for _, blk in blks], np.int32)
         out = cuda_dp.align_tiles(
             self._put(desc), cw, km, kl, self.sub_dev, self.gaps_dev,
             algo=self.algo,
@@ -263,12 +277,13 @@ class Engine:
         self._enqueue(out, blks, pending)
 
     def _dispatch_pairs(self, blks: list, ctx: tuple, pending: list) -> None:
-        """One per-pair launch for equal-width blocks (linear-v1 superblocks
-        or diagonal-remainder blocks): one int64 start id per block goes up,
+        """One per-pair launch for equal-width (index, block) pairs
+        (linear-v1 superblocks or diagonal-remainder blocks): one int64
+        start id per block goes up,
         ``rows_of`` inverts the ids to bucket rows on the device."""
         (mat_c, lens_c), (mat_k, lens_k), rows_of, Lc, Lk = ctx
-        width = blks[0].width
-        starts = self._put(np.asarray([b.start for b in blks], np.int64))
+        width = blks[0][1].width
+        starts = self._put(np.asarray([b.start for _, b in blks], np.int64))
         lin = (starts[:, None] + torch.arange(width, device=self.device)
                ).reshape(-1)
         rc, rk = rows_of(lin)
@@ -294,12 +309,13 @@ class Engine:
         """Score the whole pair space into ``store`` (None, as with the
         CLI's -W: scores are fetched and counted but not kept).
 
+        journal: checkpoint.Journal; blocks whose global index it holds are
+        skipped (their scores are already in a persistent store), and every
+        flushed block's index is committed at the next sync point
+        (SYNC_INTERVAL), after the store is synced.
         limit_pairs: stop scheduling once this many pairs are claimed (the
-        last block is finished), as the reference's benchmarking cut."""
-        if journal is not None:
-            raise NotImplementedError(
-                "checkpoint journals are not ported yet (ROADMAP A11)"
-            )
+        last block is finished, skipped blocks count), as the reference's
+        benchmarking cut."""
         if partition is not None or merger is not None:
             raise NotImplementedError(
                 "multi-host partitions are not ported yet (ROADMAP A13)"
@@ -318,28 +334,33 @@ class Engine:
             self._bucket_cache = (ss, buckets)
 
         stats = AlignStats()
-        pending: list = []  # [host scores, event, blocks, progress claimed]
+        # [host scores, event, [(global block index, block)], claimed]
+        pending: list = []
+        commit_backlog: list = []  # flushed block indices awaiting a sync
+        last_sync = [time.perf_counter()]
         inflight = 0
         scheduled = 0  # pairs claimed so far (limit_pairs)
+        gidx = 0  # global index of the next block the schedule yields
         flusher: list = []  # at most one outstanding async flush
         flush_exc: list = []
 
         def do_flush(batch):
-            """Fetch a claimed batch of dispatches and scatter its scores
-            into the store (on the flusher thread, overlapping later
-            dispatches)."""
+            """Fetch a claimed batch of dispatches, scatter its scores into
+            the store and commit its blocks to the journal (on the flusher
+            thread, overlapping later dispatches; one flush at a time, so
+            the backlog needs no lock)."""
             with self._plock:
                 claimed = {id(e): not e[3] for e in batch}
                 for e in batch:
                     e[3] = True
-            ii, jj, sc = [], [], []
+            ii, jj, sc, committed = [], [], [], []
             for entry in batch:
                 host, event, blks, _ = entry
                 if event is not None:
                     event.synchronize()
                 buf = host.numpy()
                 off = 0
-                for blk in blks:
+                for idx, blk in blks:
                     scores = buf[off : off + blk.width]
                     off += blk.width
                     if store is None:
@@ -349,6 +370,7 @@ class Engine:
                         ii.append(oi)
                         jj.append(oj)
                         sc.append(blk.select_valid(scores).astype(np.int32))
+                    committed.append(idx)
                     stats.pairs += blk.n_valid
                     stats.cells += cells
                     if bar and claimed[id(entry)]:
@@ -357,6 +379,19 @@ class Engine:
                 store.fill_pairs(
                     np.concatenate(ii), np.concatenate(jj), np.concatenate(sc)
                 )
+            if journal is not None:
+                commit_backlog.extend(committed)
+                if (SYNC_INTERVAL <= 0
+                        or time.perf_counter() - last_sync[0] >= SYNC_INTERVAL):
+                    sync_commit()
+
+        def sync_commit():
+            """Scores durable first, then the journal entry naming them."""
+            if store is not None:
+                store.sync()
+            journal.commit(commit_backlog)
+            commit_backlog.clear()
+            last_sync[0] = time.perf_counter()
 
         def join_flusher():
             if flusher:
@@ -399,7 +434,7 @@ class Engine:
                     if e[3]:
                         continue
                     e[3] = True
-                bar.add(sum(blk.n_valid for blk in e[2]))
+                bar.add(sum(blk.n_valid for _, blk in e[2]))
 
         poll_stop = threading.Event()
         poller = None
@@ -422,11 +457,28 @@ class Engine:
         def reached() -> bool:
             return limit_pairs is not None and scheduled >= limit_pairs
 
+        def take(blk):
+            """The global index of the schedule's next block, or None when
+            the journal holds it (its pairs count as resumed).  Every block
+            the schedule yields passes here once, in schedule order, before
+            any grouping.  (A13: the multi-host owner striping goes here.)"""
+            nonlocal gidx
+            idx = gidx
+            gidx += 1
+            if journal is not None and idx in journal.done:
+                stats.pairs_resumed += blk.n_valid
+                if bar:
+                    bar.add(blk.n_valid)
+                return None
+            return idx
+
         def stream(blocks, dispatch, group_max: int = 0,
                    whole: bool = False) -> None:
-            """Send one combo's blocks to ``dispatch`` in groups of equal
-            width (at most group_max blocks, 0 for no cap), pacing flushes;
-            stops once limit_pairs is reached.  With ``whole`` (the tile
+            """Send one combo's blocks that are not journaled to
+            ``dispatch`` in groups of equal width (at most group_max
+            blocks, 0 for no cap), pacing flushes; stops once limit_pairs
+            is reached.  Journaled blocks count towards the flush and limit
+            points as the reference counts them.  With ``whole`` (the tile
             stream, whose launches are sized to fill the card), a group
             that would cross FLUSH_PAIRS flushes before it starts, so the
             flush bound never cuts that launch short."""
@@ -440,14 +492,16 @@ class Engine:
                     group = []
 
             for blk in blocks:
-                if group and blk.width != group[0].width:
+                if group and blk.width != group[0][1].width:
                     send()
-                if (whole and not group and inflight
+                idx = take(blk)
+                if (idx is not None and whole and not group and inflight
                         and inflight + group_max * blk.width > FLUSH_PAIRS):
                     flush()
                 inflight += blk.width
                 scheduled += blk.n_valid
-                group.append(blk)
+                if idx is not None:
+                    group.append((idx, blk))
                 if reached():
                     break
                 if group_max and len(group) >= group_max:
@@ -508,6 +562,9 @@ class Engine:
             poller.join(timeout=2.0)
         flush(sync=True)
         join_flusher()
+        if journal is not None and commit_backlog:
+            # The run's last blocks are durable and journaled on return.
+            sync_commit()
         if bar:
             bar.end()
         stats.seconds = time.perf_counter() - t0

@@ -101,16 +101,15 @@ def test_stats_count_every_cell_once_and_cache_buckets():
 
 
 def test_unported_paths_raise():
-    """Journals (A11) and multi-host runs (A13) are refused by name (the
-    linear-v1, long-sequence and wide-matrix routes run: see
-    tests/test_torch_linear.py)."""
+    """Multi-host runs (A13) are refused by name (journals run: see
+    tests/test_torch_checkpoint.py)."""
     ss = SequenceSet.from_list(_two_bucket_seqs()[:20], M.lut)
     eng = port_engine.Engine("nw", M.matrix, (-4, 0, 0), device="cpu")
     store = OutputStore(ss.num, triangular=False, spill=False)
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.align_all(ss, store, journal=object())
     with pytest.raises(NotImplementedError, match="A13"):
         eng.align_all(ss, store, partition=(0, 2))
+    with pytest.raises(NotImplementedError, match="A13"):
+        eng.align_all(ss, store, merger=object())
 
 
 def test_schedule_token_matches_reference():
@@ -132,10 +131,13 @@ def _h5(path):
         return list(f["/sequences"].asstr()), d[...], d.dtype, d.chunks
 
 
-@pytest.mark.parametrize("inp,args", [
+CLI_INPUTS = [
     ("peptides.fasta", ["-m", "blosum62", "-a", "ga", "-s", "10", "-e", "1"]),
     ("dna.csv", ["-m", "nuc44", "-a", "sw", "-s", "10", "-e", "1"]),
-])
+]
+
+
+@pytest.mark.parametrize("inp,args", CLI_INPUTS)
 def test_cli_writes_the_reference_hdf5(tmp_path, inp, args):
     """seqalign-torch -C and seqalign-tpu -C write equal HDF5 files:
     sequences, matrix contents, dtype and chunking."""
@@ -160,26 +162,84 @@ def test_cli_no_write_runs(capsys):
     assert "Alignments per second" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["-f", "0.9"], ["-k", "run.ckpt"],
-                                  ["-t", "trace"]])
-def test_cli_unported_flags_exit_1(tmp_path, flag, capsys):
+@pytest.mark.parametrize("inp,args,thr", [
+    (*CLI_INPUTS[0], "0.9"), (*CLI_INPUTS[1], "0.9"),
+    (*CLI_INPUTS[0], "0.2"), (*CLI_INPUTS[1], "0.4"),
+])
+def test_cli_filter_writes_the_reference_hdf5(tmp_path, inp, args, thr,
+                                              capsys):
+    """seqalign-torch -C -f and seqalign-tpu -C -f drop the same sequences
+    ("Filtered out N": none at 0.9 on these files, 8 of peptides.fasta at
+    0.2, 4 of dna.csv at 0.4) and write equal HDF5 files."""
+    outs, lines = [], []
+    for name, cli in (("torch", port_cli), ("tpu", ref_cli)):
+        out = tmp_path / f"{name}.h5"
+        rc = cli.run(["-i", str(EXAMPLES / inp), "-o", str(out), *args,
+                      "-f", thr, "-C", "-F", "-P"])
+        assert rc == 0, name
+        outs.append(_h5(out))
+        lines.append([ln for ln in capsys.readouterr().out.splitlines()
+                      if "Filtered out" in ln])
+    assert len(lines[0]) == 1 and lines[0] == lines[1]
+    (s1, m1, d1, c1), (s2, m2, d2, c2) = outs
+    assert s1 == s2 and d1 == d2 and c1 == c2
+    np.testing.assert_array_equal(m1, m2)
+
+
+def test_cli_checkpoint_resume(tmp_path, capsys):
+    """-k twice: the second run resumes every block from the journal and
+    writes the same HDF5 (the reference's tests/test_cli_checkpoint_resume
+    in tests/test_checkpoint.py)."""
+    ck = tmp_path / "run.ckpt"
+    base = ["-i", str(EXAMPLES / "peptides.fasta"), "-m", "blosum62", "-a",
+            "ga", "-s", "10", "-e", "1", "-F", "-P", "-C", "-k", str(ck)]
+    assert port_cli.run(base + ["-o", str(tmp_path / "o1.h5")]) == 0
+    assert "Resuming" not in capsys.readouterr().out
+    assert port_cli.run(base + ["-o", str(tmp_path / "o2.h5")]) == 0
+    assert "Resuming:" in capsys.readouterr().out
+    assert (tmp_path / "run.ckpt.scores").exists()
+    (s1, m1, _, _), (s2, m2, _, _) = (_h5(tmp_path / "o1.h5"),
+                                      _h5(tmp_path / "o2.h5"))
+    assert s1 == s2
+    np.testing.assert_array_equal(m1, m2)
+
+
+def test_cli_trace_flag(tmp_path):
+    """-t DIR writes a torch.profiler trace of the alignment phase."""
+    tdir = tmp_path / "trace"
     rc = port_cli.run(["-i", str(EXAMPLES / "peptides.fasta"), "-o",
                        str(tmp_path / "o.h5"), "-m", "blosum62", "-a", "nw",
-                       "-p", "4", "-C", "-F", *flag])
-    assert rc == 1
-    assert "not yet ported" in capsys.readouterr().err
+                       "-p", "4", "-F", "-P", "-Q", "-C", "-t", str(tdir)])
+    assert rc == 0
+    traces = list(tdir.glob("*.json"))
+    assert traces and all(t.stat().st_size > 0 for t in traces)
 
 
 def test_cli_refuses_cpu_without_c_or_cuda(tmp_path, monkeypatch, capsys):
-    """No CUDA device and no -C: exit 1, no prompt, nothing run; a
-    multi-host environment exits 1 too."""
+    """No CUDA device and no -C: the warning, then the reference's prompt.
+    -F answers yes and the run goes on on the CPU; "n" on stdin refuses
+    and exits 1.  A multi-host environment exits 1 (A13)."""
+    import io
+
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = ["-i", str(EXAMPLES / "peptides.fasta"), "-W", "-m", "blosum62",
-            "-a", "nw", "-p", "4", "-F"]
-    assert port_cli.run(argv) == 1
-    assert "No CUDA device" in capsys.readouterr().err
+    argv = ["-i", str(EXAMPLES / "peptides.fasta"), "-m", "blosum62",
+            "-a", "nw", "-p", "4", "-P"]
+    out = tmp_path / "o.h5"
+    assert port_cli.run(argv + ["-o", str(out), "-F"]) == 0
+    got = capsys.readouterr()
+    assert "No CUDA device found" in got.out + got.err
+    (_, m, _, _) = _h5(out)
+    ref_out = tmp_path / "ref.h5"
+    assert ref_cli.run(argv + ["-o", str(ref_out), "-C", "-F", "-Q"]) == 0
+    np.testing.assert_array_equal(m, _h5(ref_out)[1])
+    monkeypatch.setattr("sys.stdin", io.StringIO("n\n"))
+    assert port_cli.run(argv + ["-W"]) == 1
+    got = capsys.readouterr()
+    assert "Do you want to use the CPU instead?" in got.out
+    assert "Failed to initialize CUDA device" in got.err
+    argv += ["-W", "-F"]
     monkeypatch.setenv("SEQALIGN_TPU_COORDINATOR", "localhost:1234")
     assert port_cli.run(argv + ["-C"]) == 1
     assert os.environ["SEQALIGN_TPU_COORDINATOR"]

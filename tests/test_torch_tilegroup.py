@@ -80,7 +80,7 @@ def test_multi_tile_launches_match_reference_engine(monkeypatch, algo, gaps):
     dispatch = port_engine.Engine._dispatch_tiles
 
     def record(self, blks, ctx, pending):
-        sent.append([b.desc for b in blks])
+        sent.append([b.desc for _, b in blks])
         return dispatch(self, blks, ctx, pending)
 
     monkeypatch.setattr(port_engine.Engine, "_tile_group",
@@ -178,7 +178,7 @@ def test_linear_v1_flushes_only_at_the_bound(monkeypatch):
 
     class Recording(_BusyFlusher):
         def __init__(self, target, args=(), daemon=None):
-            batches.append(sum(b.width for e in args[0] for b in e[2]))
+            batches.append(sum(b.width for e in args[0] for _, b in e[2]))
             super().__init__(target, args, daemon)
 
     monkeypatch.setattr(port_engine.threading, "Thread", Recording)
