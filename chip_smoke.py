@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py [--seed 0]
 
-It builds the CUDA kernels from csrc/ and goes through nine phases, each
+It builds the CUDA kernels from csrc/ and goes through eleven phases, each
 printing its own lines; any failure raises, so the exit code is non-zero
 and no result line is printed.
 
@@ -78,7 +78,27 @@ and no result line is printed.
       twice on 300 proteins (the second run prints "Resuming" and writes
       the same output), and once with -t DIR, whose trace must name the
       tile kernel's CUDA symbol.  Every CLI run fails its phase if it
-      prints "No CUDA device found".
+      prints "No CUDA device found";
+  (j) several devices on one host: (d)'s main set under tiles-v2 and
+      under linear-v1 on device=["cuda:0", "cuda:0"] (two entries, each
+      with its own stream, on the one card), then on every card when
+      there are two or more (else a line says that run was not possible):
+      each matrix must equal (d)'s, every entry must have been sent
+      launches and every card must have launched (launches_by_device);
+      wall time, launch groups and cells per entry beside a one-device run
+      in the same phase.  Then a one-device run cut at half the pairs with
+      a journal, resumed on the two entries (matrix == (d)'s, pairs
+      resumed), and entry.dryrun_multidevice on the two entries;
+  (k) two hosts on one machine: two processes of this script joined over
+      gloo through SEQALIGN_TPU_COORDINATOR=127.0.0.1:<free port>,
+      SEQALIGN_TPU_NUM_PROCESSES=2 and SEQALIGN_TPU_PROCESS_ID=0/1, both
+      on cuda:0.  First Engine.align_all(partition=, merger=TripletMerger)
+      on the main set: both stores must equal (d)'s matrix; each host's
+      pairs, cells, merges, merge seconds and bytes, and the larger share
+      of cells over the mean.  Then seqalign-torch -k as two hosts on 300
+      proteins: host 0's output must equal a one-process run's, and the
+      journals must be run.ckpt.h0 and .h1.  Every child has a deadline;
+      a child that fails or times out fails the phase.
 
 The second-to-last lines are the kernels' JSON record and the card's
 nvidia-smi line; the last line is the JSON result.  It needs no network and
@@ -92,6 +112,7 @@ import contextlib
 import importlib.util
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -358,6 +379,18 @@ def zero_launches() -> None:
 
     for k in (cuda_dp.align_tiles, cuda_dp.align_pairs, cuda_dp.align_grid):
         k.launches = 0
+        k.launches_by_device = {}
+
+
+def launches_by_device() -> dict:
+    """Per device, the launches of every kernel since zero_launches."""
+    from sequencealigner_tpu_torch.ops import cuda_dp
+
+    out: dict = {}
+    for k in (cuda_dp.align_tiles, cuda_dp.align_pairs, cuda_dp.align_grid):
+        for d, n in k.launches_by_device.items():
+            out.setdefault(d, {})[k.__name__] = n
+    return out
 
 
 def read_launches() -> dict:
@@ -772,10 +805,11 @@ def phase_h(rng, dev, M, card):
     return secs
 
 
-def resume_run(eng, ss, td, tag):
+def resume_run(eng, ss, td, tag, resumer=None):
     """One run cut by limit_pairs at half the pairs into a sentinel-filled
-    persistent store (commits at every flush), then resumed; returns
-    (matrix, interrupted stats, resumed stats, resumed launches)."""
+    persistent store (commits at every flush), then resumed by ``resumer``
+    (default ``eng``); returns (matrix, interrupted stats, resumed stats,
+    resumed launches, sentinels the cut left)."""
     from sequencealigner_tpu_torch import checkpoint, engine
     from sequencealigner_tpu_torch.io.output import OutputStore
 
@@ -792,12 +826,12 @@ def resume_run(eng, ss, td, tag):
         schedule=eng.schedule_token(ss.lengths))
     engine.SYNC_INTERVAL = 0.0
     runs = []
-    for limit in (total // 2, None):
+    for run, limit in ((eng, total // 2), (resumer or eng, None)):
         store = OutputStore(n, triangular=True, spill=False,
                             persist_path=spath)
         journal = checkpoint.Journal(jpath, header)
         zero_launches()
-        stats = eng.align_all(ss, store, progress=False, journal=journal,
+        stats = run.align_all(ss, store, progress=False, journal=journal,
                               limit_pairs=limit)
         journal.close()
         # Pairs the run left unwritten (none after the resumed run).
@@ -924,14 +958,231 @@ def phase_i(rng, dev, M, raw, tiles_mat, card):
     return secs
 
 
+def multi_run(eng, ss, label, want):
+    """One timed run of ``eng`` on ``ss`` into a square store, its launch
+    counts zeroed just before; the matrix must equal ``want``.  Returns
+    (wall seconds, stats, launches, launches by device)."""
+    from sequencealigner_tpu_torch.io.output import OutputStore
+
+    store = OutputStore(ss.num, triangular=False, spill=False)
+    zero_launches()
+    t0 = time.perf_counter()
+    stats = eng.align_all(ss, store, progress=False)
+    wall = time.perf_counter() - t0
+    launches, by_dev = read_launches(), launches_by_device()
+    if not np.array_equal(np.asarray(store.matrix).reshape(ss.num, ss.num),
+                          want):
+        raise AssertionError(f"{label}: matrix != (d)'s")
+    return wall, stats, launches, by_dev
+
+
+def phase_j(dev, M, raw, tiles_mat, card):
+    """Several devices on one host (see the head comment)."""
+    from sequencealigner_tpu_torch import engine, entry
+    from sequencealigner_tpu_torch.io.input import SequenceSet
+    from sequencealigner_tpu_torch.tools import profile_main
+
+    ss = SequenceSet.from_list(raw, M.lut)
+    gaps = (0, -10, -1)
+    lists = [["cuda:0", "cuda:0"]]
+    ncards = torch.cuda.device_count()
+    if ncards >= 2:
+        lists.append([f"cuda:{k}" for k in range(ncards)])
+    else:
+        log("(j) this machine has one card: the run on distinct cards was "
+            "not possible")
+    for tag, build in (
+        ("tiles-v2", lambda d: engine.Engine("ga", M.matrix, gaps, device=d)),
+        ("linear-v1", lambda d: profile_main.linear_engine("ga", M.matrix,
+                                                           gaps, d)),
+    ):
+        kernels = (("align_tiles", "align_pairs") if tag == "tiles-v2"
+                   else ("align_pairs",))
+        one, _, _, _ = multi_run(build(dev), ss, f"(j) {tag} one device",
+                                 tiles_mat)
+        for devs in lists:
+            label = f"(j) {tag} on {devs}"
+            wall, stats, launches, by_dev = multi_run(build(devs), ss, label,
+                                                      tiles_mat)
+            if (min(stats.lane_launches) == 0
+                    or set(by_dev) != set(map(str, engine.resolve_devices(devs)))
+                    or not all(launches[k] for k in kernels)):
+                raise AssertionError(f"{label}: entries {stats.lane_launches}"
+                                     f", launches {by_dev}")
+            log(f"{label} on {card}: matrix == (d)'s; wall {wall:.3f} s "
+                f"(one device in this phase {one:.3f} s), align "
+                f"{stats.seconds:.3f} s, {stats.gcups:.2f} GCUPS; launch "
+                f"groups per entry {stats.lane_launches}, cells per entry "
+                f"{stats.lane_cells}; launches {launches}, by device {by_dev}")
+    with tempfile.TemporaryDirectory() as td:
+        sync = engine.SYNC_INTERVAL
+        try:
+            mat, cut, res, launches, left = resume_run(
+                engine.Engine("ga", M.matrix, gaps, device=dev), ss, td,
+                "multi", resumer=engine.Engine("ga", M.matrix, gaps,
+                                               device=lists[0]))
+        finally:
+            engine.SYNC_INTERVAL = sync
+    if not np.array_equal(mat, tiles_mat) or not launches["align_tiles"]:
+        raise AssertionError("(j) resume on two entries != (d)")
+    log(f"(j) cut on one device at {cut.pairs} pairs, resumed on "
+        f"{lists[0]}: {res.pairs_resumed} pairs from the journal, "
+        f"{res.pairs} computed, launch groups per entry "
+        f"{res.lane_launches}; matrix == (d)'s")
+    out = entry.dryrun_multidevice(lists[0])
+    log(f"(j) entry.dryrun_multidevice({lists[0]}): {out['pairs']} pairs, "
+        f"matrix == one device's and symmetric; launch groups per entry "
+        f"{out['launches']}, cells {out['cells']}")
+
+
+#: Seconds a host process of (k) may take, start-up included.
+HOST_DEADLINE = 300
+
+
+def run_hosts(argv, label):
+    """``argv`` (arguments of this script) as two host processes under the
+    multi-host environment, both on cuda:0; each must exit 0 within
+    HOST_DEADLINE seconds.  Returns their outputs."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for h in range(2):
+        env = dict(os.environ, SEQALIGN_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   SEQALIGN_TPU_NUM_PROCESSES="2",
+                   SEQALIGN_TPU_PROCESS_ID=str(h))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), *argv], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=HOST_DEADLINE)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for h, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label}: host {h} exited {p.returncode}:"
+                                 f"\n{out[-4000:]}")
+    return outs
+
+
+def host_child(mode: str, workdir: Path) -> int:
+    """One host of (k), in its own process: ``lib`` scores its stripe of
+    the main set (saved by the parent in ``workdir``) and merges; ``cli``
+    runs seqalign-torch with the arguments in ``workdir``/argv.json."""
+    from sequencealigner_tpu_torch import cli, matrices
+    from sequencealigner_tpu_torch.engine import Engine
+    from sequencealigner_tpu_torch.io.input import SequenceSet
+    from sequencealigner_tpu_torch.io.output import OutputStore
+    from sequencealigner_tpu_torch.parallel import multihost
+
+    if mode == "cli":
+        h5py = importlib.util.find_spec("h5py") is not None
+        with contextlib.nullcontext() if h5py else StandInWriter():
+            return cli.run(json.loads((workdir / "argv.json").read_text()))
+    host, nhosts = multihost.init_from_env(timeout=HOST_DEADLINE)
+    M = matrices.get("blosum62")
+    with np.load(workdir / "main.npz") as z:
+        raw = np.split(z["data"], np.cumsum(z["lengths"])[:-1])
+    ss = SequenceSet.from_list(raw, M.lut)
+    eng = Engine("ga", M.matrix, (0, -10, -1), device="cuda:0")
+    merger = multihost.TripletMerger(nhosts)
+    store = OutputStore(ss.num, triangular=False, spill=False)
+    zero_launches()
+    t0 = time.perf_counter()
+    stats = eng.align_all(ss, store, progress=False, partition=(host, nhosts),
+                          merger=merger)
+    wall = time.perf_counter() - t0
+    np.save(workdir / f"host{host}.npy",
+            np.asarray(store.matrix).reshape(ss.num, ss.num))
+    print(json.dumps({
+        "host": host, "pairs": stats.pairs, "cells": stats.cells,
+        "wall": wall, "merges": merger.calls, "merge_s": merger.seconds,
+        "merge_bytes": merger.bytes, "launches": read_launches(),
+    }), flush=True)
+    return 0
+
+
+def phase_k(rng, M, raw, tiles_mat, card):
+    """Two hosts on one machine (see the head comment)."""
+    from sequencealigner_tpu_torch.tools.profile_main import proteins
+
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        np.savez(td / "main.npz", data=np.concatenate(raw),
+                 lengths=np.asarray([len(s) for s in raw]))
+        t0 = time.perf_counter()
+        outs = run_hosts(["--host-child", "lib", "--workdir", str(td)],
+                         "(k) library run")
+        secs = time.perf_counter() - t0
+        res = [json.loads(next(ln for ln in reversed(o.splitlines())
+                               if ln.startswith("{"))) for o in outs]
+        for r in sorted(res, key=lambda r: r["host"]):
+            if not np.array_equal(np.load(td / f"host{r['host']}.npy"),
+                                  tiles_mat):
+                raise AssertionError(f"(k) host {r['host']}: store != (d)")
+            log(f"(k) library host {r['host']} of 2 on {card}: store == "
+                f"(d)'s matrix; {r['pairs']} pairs, {r['cells']} cells, "
+                f"align wall {r['wall']:.3f} s, {r['merges']} merges in "
+                f"{r['merge_s']:.3f} s, {r['merge_bytes']} bytes sent, "
+                f"launches {r['launches']}")
+        cells = [r["cells"] for r in res]
+        n = len(raw)
+        if (sum(r["pairs"] for r in res) != n * (n - 1) // 2
+                or len({r["merges"] for r in res}) != 1
+                or not all(sum(r["launches"][k] for r in res)
+                           for k in ("align_tiles", "align_pairs"))):
+            raise AssertionError(f"(k) library run: {res}")
+        log(f"(k) library run: larger share of cells over the mean "
+            f"{max(cells) / (sum(cells) / 2):.4f}; both processes "
+            f"{secs:.1f} s from start to exit")
+        few = proteins(rng, 300, 50, 500)
+        fa = td / "few.fasta"
+        write_fasta(fa, few)
+        base = ["-i", str(fa), "-m", "blosum62", "-a", "ga", "-s", "10",
+                "-e", "1", "-F", "-P"]
+        (td / "argv.json").write_text(json.dumps(
+            base + ["-o", str(td / "two.h5"), "-k", str(td / "run.ckpt")]))
+        outs = run_hosts(["--host-child", "cli", "--workdir", str(td)],
+                         "(k) CLI run")
+        for h, o in enumerate(outs):
+            if f"Distributed: host {h} of 2" not in o or NO_CUDA in o:
+                raise AssertionError(f"(k) CLI host {h}:\n{o[-4000:]}")
+        h5py = importlib.util.find_spec("h5py") is not None
+        with contextlib.nullcontext() if h5py else StandInWriter():
+            cli_in_process(base + ["-o", str(td / "one.h5")],
+                           "(k) one-process CLI")
+        two, one = read_output(td / "two.h5"), read_output(td / "one.h5")
+        journals = sorted(p.name for p in td.glob("run.ckpt*"))
+        if two[0] != one[0] or not np.array_equal(two[1], one[1]) or \
+                journals != ["run.ckpt.h0", "run.ckpt.h0.scores",
+                             "run.ckpt.h1", "run.ckpt.h1.scores"]:
+            raise AssertionError(f"(k) CLI: output differs or journals "
+                                 f"{journals}")
+    log(f"(k) seqalign-torch -k as two hosts on 300 proteins: host 0's "
+        f"output == a one-process run's; journals {journals}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--host-child", choices=("lib", "cli"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--workdir", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.host_child:
+        return host_child(args.host_child, args.workdir)
     from sequencealigner_tpu_torch import matrices
     from sequencealigner_tpu_torch.ops import cuda_dp
     from sequencealigner_tpu_torch.tools.profile_main import proteins
@@ -970,6 +1221,12 @@ def main() -> int:
     log(f"(i) phase seconds {time.perf_counter() - t0:.1f} on {card} "
         "(cut, resumed run): " + ", ".join(
             f"{k} {a:.3f} s, {b:.3f} s" for k, (a, b) in resume_s.items()))
+    t0 = time.perf_counter()
+    phase_j(dev, M, main_set, tiles_mat, card)
+    log(f"(j) phase seconds {time.perf_counter() - t0:.1f} on {card}")
+    t0 = time.perf_counter()
+    phase_k(rng, M, main_set, tiles_mat, card)
+    log(f"(k) phase seconds {time.perf_counter() - t0:.1f} on {card}")
     # ms / plain_ms / bound_ms: GA at (b)'s multi-tile shape (one launch as
     # the engine sends a combo) for the tile kernel, at (b)'s multi-band 160
     # shape for the per-pair kernel and at (e)'s 80 x 70 shape for the grid

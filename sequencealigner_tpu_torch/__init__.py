@@ -15,18 +15,20 @@ def align(
     open: int = 10,
     extend: int = 1,
     filter_threshold: float = 0.0,
-    device: str = "cuda",
+    device="cuda",
     progress: bool = False,
 ):
     """Library entry point: all-vs-all similarity matrix for ``sequences``.
 
     sequences: iterable of str/bytes.  algo: "nw" (linear gap, uses ``gap``)
     | "ga" | "sw" (affine, use ``open``/``extend``).  Penalties are positive
-    magnitudes, negated internally like the CLI.  device: "cuda" (the
-    kernels) or "cpu" (their plain PyTorch versions).  Returns an (n, n)
-    int32 NumPy array (0 on the diagonal); with filter_threshold > 0 returns
-    (matrix, kept_indices) instead, the matrix over the survivors of the
-    similarity filter (filter.filter_sequences).
+    magnitudes, negated internally like the CLI.  device: what Engine takes
+    (engine.resolve_devices): "cuda", every local CUDA device (the
+    kernels); "cuda:K" one of them; "cpu" (their plain PyTorch versions);
+    or a list of such devices.  The filter runs on the first of them.
+    Returns an (n, n) int32 NumPy array (0 on the diagonal); with
+    filter_threshold > 0 returns (matrix, kept_indices) instead, the matrix
+    over the survivors of the similarity filter (filter.filter_sequences).
 
     >>> import sequencealigner_tpu_torch as sa
     >>> m = sa.align(["ARNDCQ", "ARNDCC"], algo="nw", gap=4, device="cpu")
@@ -35,7 +37,7 @@ def align(
 
     from . import filter as _filter
     from . import matrices as _matrices
-    from .engine import Engine
+    from .engine import Engine, resolve_devices
     from .io.input import SequenceSet
     from .io.output import OutputStore
 
@@ -60,7 +62,8 @@ def align(
     kept = None
     if filter_threshold > 0.0:
         ss, _dropped = _filter.filter_sequences(
-            ss, filter_threshold, progress=progress, device=device
+            ss, filter_threshold, progress=progress,
+            device=resolve_devices(device)[0],
         )
         kept = ss.kept
     if algo == "nw":

@@ -6,13 +6,13 @@ prompts and main() flow (parse/validate -> header -> configuration actions
 summary).  The engine runs the CUDA kernels; -C runs their plain PyTorch
 versions on the host CPU.  With no CUDA device and no -C the run warns and
 asks, as the reference does, whether to use the CPU instead (-F answers
-yes).  -t writes a torch.profiler trace of the alignment phase.  Multi-host
-runs are not ported yet and exit 1.
+yes).  -t writes a torch.profiler trace of the alignment phase.  Under the
+multi-host environment of parallel/multihost.py every host scores its
+stripe of the blocks and merges at every flush; host 0 writes the HDF5.
 """
 
 from __future__ import annotations
 
-import os
 import sys
 from pathlib import Path
 
@@ -362,10 +362,6 @@ def build_registry(cfg: Config) -> Registry:
     return reg
 
 
-#: Environment of a multi-host run (reference parallel/multihost.py).
-MULTIHOST_ENV = ("SEQALIGN_TPU_COORDINATOR", "SEQALIGN_TPU_DISTRIBUTED")
-
-
 def run(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     cfg = Config()
@@ -398,9 +394,6 @@ def run(argv: list[str] | None = None) -> int:
         ui.perr(str(e))
         ui.pinfo("Use %s -h, --help for usage information", prog)
         return 1
-    if any(os.environ.get(v) for v in MULTIHOST_ENV):
-        ui.perr("Multi-host runs are not yet ported (ROADMAP A13)")
-        return 1
 
     system.set_threads(cfg.threads)
 
@@ -413,6 +406,11 @@ def run(argv: list[str] | None = None) -> int:
     from .io import hdf5_io
     from .io import input as sio
     from .io.output import OutputStore, alignments
+    from .parallel import multihost
+
+    host_id, nhosts = multihost.init_from_env()
+    if nhosts > 1:
+        ui.pinfo("Distributed: host %d of %d", host_id, nhosts)
 
     ui.psection("Reading Dataset")
     try:
@@ -447,7 +445,10 @@ def run(argv: list[str] | None = None) -> int:
     if not cfg.no_write:
         ui.psection("Preparing Similarity Matrix")
         with bench.phase("output"):
-            persist = cfg.checkpoint + ".scores" if cfg.checkpoint else None
+            persist = None
+            if cfg.checkpoint:
+                suffix = f".h{host_id}" if nhosts > 1 else ""
+                persist = cfg.checkpoint + suffix + ".scores"
             # Same stable length sort as Schedule.build: a spilling store
             # lays the packed triangle out in sorted coordinates.
             import numpy as np
@@ -475,7 +476,10 @@ def run(argv: list[str] | None = None) -> int:
             schedule=engine.schedule_token(ss.lengths),
         )
         try:
-            journal = ckpt.Journal(cfg.checkpoint, header)
+            journal = ckpt.Journal(
+                cfg.checkpoint + (f".h{host_id}" if nhosts > 1 else ""),
+                header,
+            )
         except ckpt.CheckpointError as e:
             ui.perr(str(e))
             return 1
@@ -499,6 +503,8 @@ def run(argv: list[str] | None = None) -> int:
         with bench.phase("align"):
             stats = engine.align_all(
                 ss, store, progress=not reg.args["disable_progress"].is_set,
+                partition=(host_id, nhosts) if nhosts > 1 else None,
+                merger=multihost.TripletMerger(nhosts) if nhosts > 1 else None,
                 journal=journal,
             )
     finally:
@@ -510,13 +516,15 @@ def run(argv: list[str] | None = None) -> int:
     bench.phase_print("align")
 
     if not cfg.no_write:
-        ui.psection("Writing Output")
-        with bench.phase("output"):
-            hdf5_io.write(
-                cfg.output_path, store, ss, compression=cfg.compression,
-                progress=not reg.args["disable_progress"].is_set,
-            )
-        bench.phase_print("output")
+        multihost.barrier("pre-write")
+        if host_id == 0:
+            ui.psection("Writing Output")
+            with bench.phase("output"):
+                hdf5_io.write(
+                    cfg.output_path, store, ss, compression=cfg.compression,
+                    progress=not reg.args["disable_progress"].is_set,
+                )
+            bench.phase_print("output")
         if journal is not None:
             journal.close()
 

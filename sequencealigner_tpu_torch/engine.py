@@ -1,6 +1,7 @@
-"""Alignment engine of the port: the reference's two schedules on one device.
+"""Alignment engine of the port: the reference's two schedules over a list
+of devices, and its multi-host striping.
 
-Port of ``sequencealigner_tpu/engine.py`` (its single-device paths).
+Port of ``sequencealigner_tpu/engine.py``.
 
 - **tiles-v2** (the default): per bucket combo the pair space is scored as
   outer-product tiles (ops/cuda_dp.align_tiles); a same-bucket combo also
@@ -15,9 +16,25 @@ Port of ``sequencealigner_tpu/engine.py`` (its single-device paths).
   memory, the matrix is int32); the block stream follows the reference's
   so that schedule tokens and block ids mean the same pairs in both.
 
+Devices (the reference's ``make_mesh``): ``device="cuda"`` is every local
+CUDA device, ``"cuda:K"`` or ``"cpu"`` one device, and a list of such
+devices one entry each, repeats included.  Every entry holds its own copy
+of the bucket arrays, substitution matrix and gaps and, on a CUDA device,
+its own stream, on which its uploads, launches, narrowing and score copies
+all run (the caching allocator hands a stream's memory only to later work
+on that stream).  The main thread walks the schedule and sends each launch
+group to the entry with the fewest cells sent so far, ties to the lowest
+index; launches are asynchronous, so one thread feeds every stream.  No
+collective runs: scores come home through the flusher.  The reference
+splits each dispatch over its mesh instead, so its block widths scale with
+its device count (ROADMAP C5); here the block stream (widths, tails, ids)
+and the schedule token are those of the one-device reference whatever the
+device count, so a journal written on one device resumes on three and the
+other way round.
+
 Pair rows are inverted from one start id per block on the device.  Scores
 are narrowed to int16 on the device where they provably fit, copied to
-pinned host memory on the dispatch stream, and scattered into the
+pinned host memory on the entry's stream, and scattered into the
 OutputStore by a background flusher thread while later dispatches run; a
 poller reads completion through ``torch.cuda.Event.query()`` for live
 progress.
@@ -30,14 +47,18 @@ block the schedule yields, in schedule order, as the reference numbers
 them; launch grouping changes no index, so a journal of either package
 resumes in the other under the same schedule token.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP item):
-multi-host partitions and mergers (A13).
+Multi-host (``partition=(host, nhosts)``, ``merger=``): every host walks
+the whole block stream and owns the blocks that the reference's
+least-loaded striping gives it; flush points depend on the global block
+stream only, so every host reaches each merge together.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import math
 import os
 import threading
 import time
@@ -51,7 +72,7 @@ from .io.input import SequenceSet
 from .io.output import OutputStore
 from .ops import cuda_dp, geometry
 from .ops.geometry import BIG_NEG, PAD
-from .scheduler import TILE_B, TILE_S, TRI_W, Schedule
+from .scheduler import TILE_B, TILE_S, TRI_W, Block, Schedule
 
 ALGOS = ("nw", "ga", "sw")
 
@@ -117,12 +138,121 @@ def _diag_rows(lin, n_slots: int, rows: int):
     return rc, rk
 
 
+class _BlockCells:
+    """True DP cells of a schedule's blocks without their per-pair arrays.
+    The main thread needs them to send launch groups to entries and
+    blocks to hosts; ``Block.cells`` builds the arrays with numpy, which
+    also takes the flusher's fused C pass (``Block.pairs``) away.  Tile
+    blocks count analytically already, and diagonal-remainder blocks build
+    their arrays at flush anyway: both keep their own ``cells``."""
+
+    def __init__(self, sched: Schedule):
+        self.psums = sched.length_psums()
+        self.qsums: dict = {}
+
+    def _q(self, b: int) -> np.ndarray:
+        """q[r] = sum over rows t < r of len(t) * psum(t), for bucket b."""
+        if b not in self.qsums:
+            p = self.psums[b]
+            self.qsums[b] = np.concatenate(
+                ([0], np.cumsum(np.diff(p) * p[:-1], dtype=np.int64)))
+        return self.qsums[b]
+
+    def __call__(self, blk) -> int:
+        if not isinstance(blk, Block):
+            return blk.cells
+        pk, pc = self.psums[blk.bucket_k], self.psums[blk.bucket_c]
+        s, e = blk.start, blk.start + blk.n_valid
+        if blk.bucket_k != blk.bucket_c:
+            # Rectangle: id = rc * rows + rk.
+            rows = len(pk) - 1
+            (r0, k0), (r1, k1) = divmod(s, rows), divmod(e, rows)
+            if r0 == r1:
+                return int((pc[r0 + 1] - pc[r0]) * (pk[k1] - pk[k0]))
+            out = ((pc[r0 + 1] - pc[r0]) * (pk[rows] - pk[k0])
+                   + (pc[r1] - pc[r0 + 1]) * pk[rows])
+            if k1:
+                out += (pc[r1 + 1] - pc[r1]) * pk[k1]
+            return int(out)
+        # Triangle: row j holds ids j(j-1)/2 + i, i < j.
+        (j0, i0), (j1, i1) = (_tri_row(x) for x in (s, e))
+        if j0 == j1:
+            return int((pk[j0 + 1] - pk[j0]) * (pk[i1] - pk[i0]))
+        q = self._q(blk.bucket_k)
+        out = (pk[j0 + 1] - pk[j0]) * (pk[j0] - pk[i0]) + q[j1] - q[j0 + 1]
+        if i1:
+            out += (pk[j1 + 1] - pk[j1]) * pk[i1]
+        return int(out)
+
+
+def _tri_row(lin: int) -> tuple[int, int]:
+    """(j, i) of triangle id ``lin`` = j(j-1)/2 + i, i < j, exactly."""
+    j = (1 + math.isqrt(1 + 8 * lin)) // 2
+    return j, lin - j * (j - 1) // 2
+
+
+def resolve_devices(device) -> list:
+    """The engine's entries for ``device``: ``"cuda"`` (a CUDA device
+    without an index) is every local CUDA device, as the reference's
+    ``make_mesh("auto")``; ``"cuda:K"`` or ``"cpu"`` is that one device; a
+    list or tuple of such devices is their entries in order, repeats
+    included.  All entries are CUDA devices, or all are the CPU.  Raises
+    when a CUDA device is asked for and there is none: nothing falls back
+    to the CPU."""
+    items = list(device) if isinstance(device, (list, tuple)) else [device]
+    out = []
+    for item in items:
+        d = torch.device(item)
+        if d.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device available")
+            n = torch.cuda.device_count()
+            if d.index is None:
+                out.extend(torch.device("cuda", k) for k in range(n))
+                continue
+            if d.index >= n:
+                raise ValueError(f"{d}: this host has {n} CUDA devices")
+        elif d.type != "cpu":
+            raise ValueError(f"the engine runs on CUDA devices or the CPU, "
+                             f"not {d}")
+        out.append(d)
+    if not out or len({d.type for d in out}) > 1:
+        raise ValueError(f"device {device!r}: one or more entries, all CUDA "
+                         "devices or all the CPU")
+    return out
+
+
+@dataclasses.dataclass
+class _Lane:
+    """One entry of the engine's device list: its device, its own stream on
+    a CUDA device (None on the CPU) and its copy of the substitution matrix
+    and gaps."""
+
+    device: torch.device
+    stream: object
+    sub: torch.Tensor | None = None
+    gaps: torch.Tensor | None = None
+
+    @contextlib.contextmanager
+    def on(self):
+        """The entry's device and stream, current for its uploads, launches
+        and score copies."""
+        if self.stream is None:
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            yield
+
+
 @dataclasses.dataclass
 class AlignStats:
     pairs: int = 0
     cells: int = 0
     seconds: float = 0.0
     pairs_resumed: int = 0  # skipped: their blocks were journaled
+    # Per entry of the engine's device list: launch groups and cells sent.
+    lane_launches: list = dataclasses.field(default_factory=list)
+    lane_cells: list = dataclasses.field(default_factory=list)
 
     @property
     def gcups(self) -> float:
@@ -130,17 +260,24 @@ class AlignStats:
 
 
 class Engine:
-    def __init__(self, algo: str, sub: np.ndarray, gaps, *, device="cuda"):
+    def __init__(self, algo: str, sub: np.ndarray, gaps, *, device="cuda",
+                 target_cells: int | None = None):
+        """device: see resolve_devices.  target_cells: DP cells per block
+        of the combos the kernels' tile geometry does not take (long edges,
+        or |score| > 127), as the reference's; default 2^24."""
         if algo not in ALGOS:
             raise ValueError(f"unknown algorithm {algo!r}")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available")
+        self.devices = resolve_devices(device)
+        self._cuda = self.devices[0].type == "cuda"
         self.algo = algo
         self.gaps = np.asarray(gaps, dtype=np.int32)
-        self.sub_dev, self.gaps_dev = from_reference_inputs(
-            sub, self.gaps, self.device
-        )
+        self.target_cells = target_cells
+        self.lanes = []
+        for d in self.devices:
+            lane = _Lane(d, torch.cuda.Stream(d) if self._cuda else None)
+            with lane.on():
+                lane.sub, lane.gaps = from_reference_inputs(sub, self.gaps, d)
+            self.lanes.append(lane)
         # The largest |substitution score| bounds the int16 narrowing.  Past
         # the int8 range the reference leaves its Pallas kernels (their
         # score grid is int8), so such a run takes linear-v1 with the
@@ -148,11 +285,16 @@ class Engine:
         self.max_sub = int(np.abs(np.asarray(sub, np.int64)).max())
         # Read at construction, as the reference does: 0 selects linear-v1.
         self.outer = os.environ.get("SEQALIGN_TPU_OUTER", "1") != "0"
-        self._cuda = self.device.type == "cuda"
         self._plock = threading.Lock()  # guards the pending list (poller)
-        # One-entry cache of per-bucket device arrays, keyed by SequenceSet
-        # identity: repeated align_all calls on one set skip the uploads.
+        # One-entry cache of the entries' bucket arrays, keyed by
+        # SequenceSet identity: repeated align_all calls on one set skip
+        # the uploads.
         self._bucket_cache: tuple | None = None
+        # Launch groups and cells sent to each entry in the current run,
+        # and the run's block cells.
+        self._lane_launches = [0] * len(self.lanes)
+        self._lane_cells = [0] * len(self.lanes)
+        self._cells = None
 
     def _tiles(self, sched: Schedule) -> bool:
         """Whether a run over ``sched`` takes tiles-v2 (else linear-v1)."""
@@ -163,7 +305,9 @@ class Engine:
     def schedule_token(self, lengths) -> str:
         """Identifier of the block-schedule geometry for ``lengths``; equal
         to the reference engine's token (its Pallas engine) in every
-        configuration: tiles-v2 or linear-v1, and a hash of the buckets."""
+        configuration: tiles-v2 or linear-v1, and a hash of the buckets.
+        It holds no device count: the block stream does not depend on
+        it."""
         sched = Schedule.build(np.asarray(lengths))
         geo = zlib.crc32(np.asarray(
             [(b.edge, b.start, b.end) for b in sched.buckets], np.int64
@@ -171,22 +315,25 @@ class Engine:
         kind = "tiles-v2" if self._tiles(sched) else "linear-v1"
         return f"{kind}.{geo:08x}"
 
-    def _put(self, x: np.ndarray) -> torch.Tensor:
+    @staticmethod
+    def _put(x: np.ndarray, lane: _Lane) -> torch.Tensor:
+        """``x`` on the entry's device; on a CUDA device the copy runs on
+        the current stream, which callers make the entry's."""
         t = torch.from_numpy(np.ascontiguousarray(x))
-        if self._cuda:
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        if lane.stream is None:
+            return t
+        return t.pin_memory().to(lane.device, non_blocking=True)
 
     def _bucket_arrays(self, ss: SequenceSet, sched: Schedule,
                        tiles: bool) -> list:
-        """Per bucket: ``(codes, outer)`` on the device.  ``codes`` is the
-        per-pair kernel's (count, edge) int8 code matrix and int32 lengths;
-        ``outer`` the tile kernel's (cwords, kmatT, klens)
-        (geometry.pack_bucket_outer), None under linear-v1."""
+        """Per entry, per bucket: ``(codes, outer)`` on its device.
+        ``codes`` is the per-pair kernel's (count, edge) int8 code matrix
+        and int32 lengths; ``outer`` the tile kernel's (cwords, kmatT,
+        klens) (geometry.pack_bucket_outer), None under linear-v1."""
         from .io import native
 
         lut = ss.lut
-        out = []
+        host = []
         for b in sched.buckets:
             rows = sched.order[b.start : b.end]
             mat = native.pack_rows(ss.data, ss.offsets, rows, b.edge, lut, PAD)
@@ -196,11 +343,18 @@ class Engine:
                     s = ss.data[ss.offsets[orig] : ss.offsets[orig + 1]]
                     mat[local, : len(s)] = lut[s]
             blens = sched.lengths_sorted[b.start : b.end].astype(np.int32)
-            outer = None
-            if tiles:
-                outer = tuple(map(self._put, geometry.pack_bucket_outer(
-                    mat, blens, b.edge)))
-            out.append(((self._put(mat), self._put(blens)), outer))
+            outer = (geometry.pack_bucket_outer(mat, blens, b.edge)
+                     if tiles else None)
+            host.append(((mat, blens), outer))
+        out = []
+        for lane in self.lanes:
+            with lane.on():
+                out.append([
+                    (tuple(self._put(a, lane) for a in codes),
+                     None if outer is None
+                     else tuple(self._put(a, lane) for a in outer))
+                    for codes, outer in host
+                ])
         return out
 
     def _superblock_width(self, Lc: int, Lk: int, npairs: int):
@@ -208,14 +362,16 @@ class Engine:
         reference's one-device engine sizes them (its _superblock_width):
         within the kernel's geometry, power-of-two stripes of LANE pairs up
         to pick_S (tail unit LANE); beyond it (long edges, or |score| > 127),
-        about 2^24 cells per block with no tail shrinking (unit 0)."""
+        about target_cells (2^24) cells per block with no tail shrinking
+        (unit 0)."""
         if self.max_sub <= 127 and geometry.supports(Lc, Lk):
             B = geometry.LANE
             nb, Kpad, CD, W = geometry.geometry(Lc, Lk, B)
             S = geometry.pick_S(B, Kpad, W)
             s_needed = 1 << (max(1, -(-npairs // B)) - 1).bit_length()
             return max(1, min(S, s_needed)) * B, B
-        b = max(8, min(4096, (1 << 24) // (Lc * Lk)))
+        target = self.target_cells or (1 << 24)
+        b = max(8, min(4096, target // (Lc * Lk)))
         b = 1 << (int(b).bit_length() - 1)
         while b // 2 >= 8 and b // 2 >= npairs:
             b //= 2
@@ -234,11 +390,24 @@ class Engine:
         step = max(127, self.max_sub, *(abs(int(g)) for g in self.gaps))
         return (Lc + Lk) * step < 32767
 
-    def _enqueue(self, dev: torch.Tensor, part: list, pending: list) -> None:
+    def _pick(self, blks: list) -> int:
+        """The entry that takes one launch group of (index, block): the one
+        with the fewest cells sent so far, ties to the lowest index, so the
+        assignment is a function of the block stream alone."""
+        k = 0
+        if len(self.lanes) > 1:
+            cells = self._lane_cells
+            k = cells.index(min(cells))
+            cells[k] += sum(map(self._cells, (blk for _, blk in blks)))
+        self._lane_launches[k] += 1
+        return k
+
+    def _enqueue(self, dev: torch.Tensor, part: list, pending: list,
+                 lane: int) -> None:
         """Narrowed scores of ``part``, a list of (global block index,
         block), -> host.  On CUDA the copy goes to pinned memory on the
-        dispatch stream and an event marks its completion, so the flusher
-        waits only for this dispatch."""
+        entry's stream (the current one) and an event marks its
+        completion, so the flusher waits only for this dispatch."""
         flat = dev.reshape(-1)
         event = None
         if self._cuda:
@@ -249,51 +418,69 @@ class Engine:
         else:
             host = flat
         with self._plock:
-            pending.append([host, event, part, False])
+            pending.append([host, event, part, False, lane])
+
+    @functools.cached_property
+    def _fill_tiles(self) -> int:
+        return cuda_dp.tiles_to_fill(self.devices[0], self.algo)
 
     def _tile_group(self, Lc: int, Lk: int, ntiles: int) -> int:
         """Tiles per tile-kernel launch for a combo of ``ntiles`` tiles.  On
         the card, as few launches as the flush cap allows, so each one keeps
-        every SM busy (cuda_dp.tiles_per_launch); on the CPU the plain
-        version holds a whole launch in memory, so the reference's
-        geometry.pick_T groups them.  Launch grouping changes no block, id
-        or schedule token."""
+        every SM busy (cuda_dp.tiles_per_launch); with several entries, a
+        combo that fills more than one card is split into a launch per
+        entry at least.  On the CPU the plain version holds a whole launch
+        in memory, so the reference's geometry.pick_T groups them.  Launch
+        grouping changes no block, id or schedule token."""
         if self._cuda:
-            return cuda_dp.tiles_per_launch(ntiles,
-                                            FLUSH_PAIRS // (TILE_S * TILE_B))
+            cap = FLUSH_PAIRS // (TILE_S * TILE_B)
+            if len(self.lanes) > 1:
+                share = -(-ntiles // len(self.lanes))
+                cap = min(cap, max(share, self._fill_tiles))
+            return cuda_dp.tiles_per_launch(ntiles, cap)
         return geometry.pick_T(Lc, Lk)
 
     def _dispatch_tiles(self, blks: list, ctx: tuple, pending: list) -> None:
-        """One tile-kernel launch for a group of (index, tile): the only
-        upload is the (T, 2) int32 descriptor array."""
-        cw, km, kl, Lc, Lk = ctx
+        """One tile-kernel launch for a group of (index, tile) on the entry
+        ``_pick`` names: the only upload is the (T, 2) int32 descriptor
+        array."""
+        arrays, Lc, Lk = ctx
+        k = self._pick(blks)
+        lane = self.lanes[k]
+        cw, km, kl = arrays[k]
         desc = np.asarray([blk.desc for _, blk in blks], np.int32)
-        out = cuda_dp.align_tiles(
-            self._put(desc), cw, km, kl, self.sub_dev, self.gaps_dev,
-            algo=self.algo,
-        )
-        if self._int16_ok(Lc, Lk):
-            out = out.to(torch.int16)
-        self._enqueue(out, blks, pending)
+        with lane.on():
+            out = cuda_dp.align_tiles(
+                self._put(desc, lane), cw, km, kl, lane.sub, lane.gaps,
+                algo=self.algo,
+            )
+            if self._int16_ok(Lc, Lk):
+                out = out.to(torch.int16)
+            self._enqueue(out, blks, pending, k)
 
     def _dispatch_pairs(self, blks: list, ctx: tuple, pending: list) -> None:
         """One per-pair launch for equal-width (index, block) pairs
-        (linear-v1 superblocks or diagonal-remainder blocks): one int64
-        start id per block goes up,
-        ``rows_of`` inverts the ids to bucket rows on the device."""
-        (mat_c, lens_c), (mat_k, lens_k), rows_of, Lc, Lk = ctx
+        (linear-v1 superblocks or diagonal-remainder blocks) on the entry
+        ``_pick`` names: one int64 start id per block goes up, ``rows_of``
+        inverts the ids to bucket rows on the device."""
+        arrays, rows_of, Lc, Lk = ctx
+        k = self._pick(blks)
+        lane = self.lanes[k]
+        (mat_c, lens_c), (mat_k, lens_k) = arrays[k]
         width = blks[0][1].width
-        starts = self._put(np.asarray([b.start for _, b in blks], np.int64))
-        lin = (starts[:, None] + torch.arange(width, device=self.device)
-               ).reshape(-1)
-        rc, rk = rows_of(lin)
-        out = cuda_dp.align_pairs(
-            mat_c, mat_k, rc, rk, lens_c, lens_k, self.sub_dev, self.gaps_dev,
-            algo=self.algo,
-        )
-        if self._int16_ok(Lc, Lk):
-            out = out.to(torch.int16)
-        self._enqueue(out, blks, pending)
+        with lane.on():
+            starts = self._put(np.asarray([b.start for _, b in blks],
+                                          np.int64), lane)
+            lin = (starts[:, None] + torch.arange(width, device=lane.device)
+                   ).reshape(-1)
+            rc, rk = rows_of(lin)
+            out = cuda_dp.align_pairs(
+                mat_c, mat_k, rc, rk, lens_c, lens_k, lane.sub, lane.gaps,
+                algo=self.algo,
+            )
+            if self._int16_ok(Lc, Lk):
+                out = out.to(torch.int16)
+            self._enqueue(out, blks, pending, k)
 
     def align_all(
         self,
@@ -301,7 +488,7 @@ class Engine:
         store: OutputStore | None,
         *,
         progress: bool = True,
-        partition=None,
+        partition: tuple[int, int] | None = None,
         merger=None,
         journal=None,
         limit_pairs: int | None = None,
@@ -309,17 +496,23 @@ class Engine:
         """Score the whole pair space into ``store`` (None, as with the
         CLI's -W: scores are fetched and counted but not kept).
 
+        partition: (host_id, nhosts): this host scores the blocks that the
+        reference's least-loaded striping gives it (each block to the host
+        with the fewest cells so far, ties to the lowest id); every host
+        walks the same block stream, so flush points count all blocks.
+        merger: callable (i, j, scores) -> (i, j, scores) applied at every
+        flush point, on the main thread, even with nothing to flush (the
+        multi-host exchange: parallel.multihost.TripletMerger, or
+        parallel.shard_store.TripletRouter with a ShardStore as ``store``).
         journal: checkpoint.Journal; blocks whose global index it holds are
-        skipped (their scores are already in a persistent store), and every
-        flushed block's index is committed at the next sync point
-        (SYNC_INTERVAL), after the store is synced.
+        skipped (their scores are already in a persistent store, and are
+        read back for the merger), and every flushed block's index is
+        committed at the next sync point (SYNC_INTERVAL), after the store
+        is synced.
         limit_pairs: stop scheduling once this many pairs are claimed (the
         last block is finished, skipped blocks count), as the reference's
         benchmarking cut."""
-        if partition is not None or merger is not None:
-            raise NotImplementedError(
-                "multi-host partitions are not ported yet (ROADMAP A13)"
-            )
+        host_id, nhosts = partition if partition else (0, 1)
         sched = Schedule.build(ss.lengths)
         tiles = self._tiles(sched)
         total_pairs = sched.total_pairs()
@@ -332,30 +525,38 @@ class Engine:
         else:
             buckets = self._bucket_arrays(ss, sched, tiles)
             self._bucket_cache = (ss, buckets)
+        self._lane_launches = [0] * len(self.lanes)
+        self._lane_cells = [0] * len(self.lanes)
+        self._cells = _BlockCells(sched)
 
         stats = AlignStats()
-        # [host scores, event, [(global block index, block)], claimed]
+        # [host scores, event, [(global block index, block)], claimed, entry]
         pending: list = []
         commit_backlog: list = []  # flushed block indices awaiting a sync
+        resumed: list = []  # journaled blocks' triplets for the merger
         last_sync = [time.perf_counter()]
         inflight = 0
         scheduled = 0  # pairs claimed so far (limit_pairs)
         gidx = 0  # global index of the next block the schedule yields
+        loads = np.zeros(nhosts, np.int64)  # cells owned per host so far
         flusher: list = []  # at most one outstanding async flush
         flush_exc: list = []
+        # Triplets are built when something takes them.
+        keep = store is not None or merger is not None
 
         def do_flush(batch):
             """Fetch a claimed batch of dispatches, scatter its scores into
-            the store and commit its blocks to the journal (on the flusher
-            thread, overlapping later dispatches; one flush at a time, so
-            the backlog needs no lock)."""
+            the store (through the merger, if any) and commit its blocks to
+            the journal (on the flusher thread, overlapping later
+            dispatches, unless a merger runs; one flush at a time, so the
+            backlog needs no lock)."""
             with self._plock:
                 claimed = {id(e): not e[3] for e in batch}
                 for e in batch:
                     e[3] = True
             ii, jj, sc, committed = [], [], [], []
             for entry in batch:
-                host, event, blks, _ = entry
+                host, event, blks = entry[:3]
                 if event is not None:
                     event.synchronize()
                 buf = host.numpy()
@@ -363,19 +564,33 @@ class Engine:
                 for idx, blk in blks:
                     scores = buf[off : off + blk.width]
                     off += blk.width
-                    if store is None:
-                        cells = blk.cells
-                    else:
+                    if keep:
                         oi, oj, cells = blk.pairs()
                         ii.append(oi)
                         jj.append(oj)
                         sc.append(blk.select_valid(scores).astype(np.int32))
+                    else:
+                        cells = blk.cells
                     committed.append(idx)
                     stats.pairs += blk.n_valid
                     stats.cells += cells
                     if bar and claimed[id(entry)]:
                         bar.add(blk.n_valid)
-            if sc:
+            if merger is not None:
+                for oi, oj, s in resumed:
+                    ii.append(oi)
+                    jj.append(oj)
+                    sc.append(s)
+                resumed.clear()
+
+                def cat(xs, dt):
+                    return np.concatenate(xs) if xs else np.zeros(0, dt)
+
+                oi, oj, s = merger(cat(ii, np.int64), cat(jj, np.int64),
+                                   cat(sc, np.int32))
+                if store is not None and len(s):
+                    store.fill_pairs(oi, oj, s)
+            elif sc:
                 store.fill_pairs(
                     np.concatenate(ii), np.concatenate(jj), np.concatenate(sc)
                 )
@@ -412,6 +627,11 @@ class Engine:
                 batch = list(pending)
                 pending.clear()
             inflight = 0
+            if merger is not None:
+                # The merger runs collectives: on the main thread, at every
+                # flush point, even with nothing to flush (peers may send).
+                do_flush(batch)
+                return
             if not batch:
                 return
             if sync:
@@ -423,18 +643,22 @@ class Engine:
 
         def poll_progress(stop):
             # Live progress between flushes: Event.query() is a non-blocking
-            # completion probe of the oldest unclaimed dispatch (completion
-            # is in order on one stream).
+            # completion probe of each entry's oldest unclaimed dispatch
+            # (completion is in order on one stream).
             while not stop.wait(0.25):
+                heads = {}
                 with self._plock:
-                    e = next((x for x in pending if not x[3]), None)
-                if e is None or (e[1] is not None and not e[1].query()):
-                    continue
-                with self._plock:
-                    if e[3]:
+                    for x in pending:
+                        if not x[3]:
+                            heads.setdefault(x[4], x)
+                for e in heads.values():
+                    if e[1] is not None and not e[1].query():
                         continue
-                    e[3] = True
-                bar.add(sum(blk.n_valid for _, blk in e[2]))
+                    with self._plock:
+                        if e[3]:
+                            continue
+                        e[3] = True
+                    bar.add(sum(blk.n_valid for _, blk in e[2]))
 
         poll_stop = threading.Event()
         poller = None
@@ -445,13 +669,16 @@ class Engine:
             poller.start()
 
         def pace(dispatch) -> None:
-            """Flush at FLUSH_PAIRS; otherwise, when the flusher is idle and
-            dispatches are in flight, start fetching them now (eager
-            overlap: only the last dispatch's copy lands after the loop)."""
+            """Flush at FLUSH_PAIRS; otherwise, without a merger, when the
+            flusher is idle and dispatches are in flight, start fetching
+            them now (eager overlap: only the last dispatch's copy lands
+            after the loop).  Under a merger only the global FLUSH_PAIRS
+            points flush, so every host reaches the same ones."""
             if inflight >= FLUSH_PAIRS:
                 dispatch()
                 flush()
-            elif pending and (not flusher or not flusher[0].is_alive()):
+            elif merger is None and pending and (
+                    not flusher or not flusher[0].is_alive()):
                 flush()
 
         def reached() -> bool:
@@ -459,14 +686,27 @@ class Engine:
 
         def take(blk):
             """The global index of the schedule's next block, or None when
-            the journal holds it (its pairs count as resumed).  Every block
-            the schedule yields passes here once, in schedule order, before
-            any grouping.  (A13: the multi-host owner striping goes here.)"""
+            another host owns it or the journal holds it (its pairs count as
+            resumed; under a merger its stored scores are re-contributed at
+            the next flush, so peers that lost theirs converge too).  Every
+            block the schedule yields passes here once, in schedule order,
+            before any grouping."""
             nonlocal gidx
             idx = gidx
             gidx += 1
+            if nhosts > 1:
+                owner = int(np.argmin(loads))
+                loads[owner] += self._cells(blk)
+                if owner != host_id:
+                    if bar:
+                        bar.add(blk.n_valid)  # another host's work
+                    return None
             if journal is not None and idx in journal.done:
                 stats.pairs_resumed += blk.n_valid
+                if merger is not None and store is not None:
+                    v = blk.valid
+                    oi, oj = blk.orig_i[v], blk.orig_j[v]
+                    resumed.append((oi, oj, store.read_pairs(oi, oj)))
                 if bar:
                     bar.add(blk.n_valid)
                 return None
@@ -474,14 +714,16 @@ class Engine:
 
         def stream(blocks, dispatch, group_max: int = 0,
                    whole: bool = False) -> None:
-            """Send one combo's blocks that are not journaled to
-            ``dispatch`` in groups of equal width (at most group_max
-            blocks, 0 for no cap), pacing flushes; stops once limit_pairs
-            is reached.  Journaled blocks count towards the flush and limit
-            points as the reference counts them.  With ``whole`` (the tile
-            stream, whose launches are sized to fill the card), a group
-            that would cross FLUSH_PAIRS flushes before it starts, so the
-            flush bound never cuts that launch short."""
+            """Send one combo's blocks that this host scores to ``dispatch``
+            in groups of equal width (at most group_max blocks, 0 for no
+            cap), pacing flushes; stops once limit_pairs is reached.
+            Skipped blocks (another host's, or journaled) count towards the
+            flush and limit points as the reference counts them.  With
+            ``whole`` (the tile stream, whose launches are sized to fill
+            the card) and no merger, a group that would cross FLUSH_PAIRS
+            flushes before it starts, so the flush bound never cuts that
+            launch short; under a merger that flush would depend on
+            ownership, so it is not made."""
             nonlocal inflight, scheduled
             group: list = []
 
@@ -495,7 +737,8 @@ class Engine:
                 if group and blk.width != group[0][1].width:
                     send()
                 idx = take(blk)
-                if (idx is not None and whole and not group and inflight
+                if (idx is not None and whole and merger is None and not group
+                        and inflight
                         and inflight + group_max * blk.width > FLUSH_PAIRS):
                     flush()
                 inflight += blk.width
@@ -517,7 +760,6 @@ class Engine:
                 continue
             Lk = sched.buckets[a].edge
             Lc = sched.buckets[b].edge
-            (codes_k, outer_k), (codes_c, outer_c) = buckets[a], buckets[b]
             if not tiles:
                 # linear-v1: superblocks of consecutive pair ids.
                 rows = sched.buckets[a].count
@@ -528,9 +770,9 @@ class Engine:
                         "Schedule.build (which splits oversized buckets)"
                     )
                 width, B = self._superblock_width(Lc, Lk, npairs)
-                ctx = (codes_c, codes_k, functools.partial(
-                    _pair_rows, npairs=npairs, rows=rows, tri=a == b
-                ), Lc, Lk)
+                ctx = ([(bl[b][0], bl[a][0]) for bl in buckets],
+                       functools.partial(_pair_rows, npairs=npairs, rows=rows,
+                                         tri=a == b), Lc, Lk)
                 chunk = max(1, FLUSH_PAIRS // width)
                 stream(
                     sched.blocks(a, b, width=width, tail_min=B or None),
@@ -538,7 +780,8 @@ class Engine:
                     1 << (chunk.bit_length() - 1),
                 )
                 continue
-            tctx = (outer_c[0], outer_k[1], outer_k[2], Lc, Lk)
+            tctx = ([(bl[b][1][0], bl[a][1][1], bl[a][1][2]) for bl in buckets],
+                    Lc, Lk)
             tiles_ab = list(sched.tiles(a, b))
             stream(tiles_ab,
                    lambda g: self._dispatch_tiles(g, tctx, pending),
@@ -549,9 +792,9 @@ class Engine:
             # the tile stream (Schedule.tiles), through the per-pair kernel.
             count = sched.buckets[a].count
             n_slots = -(-count // TILE_B) * TRI_W
-            ctx = (codes_k, codes_k, functools.partial(
-                _diag_rows, n_slots=n_slots, rows=count
-            ), Lc, Lc)
+            ctx = ([(bl[a][0], bl[a][0]) for bl in buckets],
+                   functools.partial(_diag_rows, n_slots=n_slots, rows=count),
+                   Lc, Lc)
             stream(
                 sched.diag_blocks(a, self._diag_width(Lc, n_slots),
                                   tail_min=TILE_B),
@@ -568,4 +811,7 @@ class Engine:
         if bar:
             bar.end()
         stats.seconds = time.perf_counter() - t0
+        stats.lane_launches = list(self._lane_launches)
+        stats.lane_cells = (list(self._lane_cells) if len(self.lanes) > 1
+                            else [stats.cells])
         return stats

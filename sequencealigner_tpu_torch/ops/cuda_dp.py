@@ -4,8 +4,11 @@
 ``align_tiles``, ``align_pairs`` and ``align_grid`` take the contracts of
 their plain versions in ops/torch_dp.py.  For tensors on the CPU they call
 the plain version; for CUDA tensors they launch the kernel on the current
-stream (or raise): there is no fallback.  Each wrapper counts its launches
-in a plain integer attribute, e.g. ``align_tiles.launches``.  The wrappers
+stream of the tensors' device (or raise): there is no fallback.  Each
+wrapper counts its launches in a plain integer attribute, e.g.
+``align_tiles.launches``, and per device in ``launches_by_device`` (keyed
+by ``str(device)``), under the module's lock: the engine launches on
+several devices, and a caller may launch from several threads.  The wrappers
 check devices, dtypes, shapes and contiguity; the row indices inside
 ``desc`` / ``rc`` / ``rk`` and the lengths are trusted (the engine derives
 them from the schedule), since reading them back would synchronise the
@@ -319,6 +322,21 @@ def tiles_per_launch(ntiles: int, cap: int) -> int:
     return max(1, -(-ntiles // n))
 
 
+def _count(kernel, dev) -> None:
+    """One launch of ``kernel`` on ``dev``, in both of its counters."""
+    by_device = kernel.launches_by_device
+    with _lock:
+        kernel.launches += 1
+        by_device[str(dev)] = by_device.get(str(dev), 0) + 1
+
+
+def tiles_to_fill(dev, algo: str) -> int:
+    """Tiles an align_tiles launch needs on ``dev`` so that every resident
+    block of its grid gets an item (a tile is S_TILE items)."""
+    with torch.cuda.device(dev):
+        return -(-_sms(dev) * tiles_resident(algo) // S_TILE)
+
+
 def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.align_dp_error_string(err).decode()
@@ -366,11 +384,12 @@ def align_tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo: str):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "align_tiles")
-    align_tiles.launches += 1
+    _count(align_tiles, dev)
     return out
 
 
 align_tiles.launches = 0
+align_tiles.launches_by_device = {}
 
 
 def align_pairs(mat_c, mat_k, rc, rk, lens_c, lens_k, sub, gaps, *,
@@ -416,11 +435,12 @@ def align_pairs(mat_c, mat_k, rc, rk, lens_c, lens_k, sub, gaps, *,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "align_pairs")
-    align_pairs.launches += 1
+    _count(align_pairs, dev)
     return out
 
 
 align_pairs.launches = 0
+align_pairs.launches_by_device = {}
 
 
 def align_grid(sk, l1, l2, gaps, *, algo: str):
@@ -457,8 +477,9 @@ def align_grid(sk, l1, l2, gaps, *, algo: str):
             lay["grid"], torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "align_grid")
-    align_grid.launches += 1
+    _count(align_grid, dev)
     return out
 
 
 align_grid.launches = 0
+align_grid.launches_by_device = {}

@@ -1,7 +1,6 @@
 """The port's engine, library entry and CLI against the JAX package's, on the
 CPU: full score matrices and HDF5 files must be equal, not close."""
 
-import os
 from pathlib import Path
 
 import numpy as np
@@ -98,18 +97,6 @@ def test_stats_count_every_cell_once_and_cache_buckets():
     np.testing.assert_array_equal(store.rows(0, ss.num), first)
     counted = eng.align_all(ss, None, progress=False)  # the CLI's -W run
     assert (counted.pairs, counted.cells) == (stats.pairs, stats.cells)
-
-
-def test_unported_paths_raise():
-    """Multi-host runs (A13) are refused by name (journals run: see
-    tests/test_torch_checkpoint.py)."""
-    ss = SequenceSet.from_list(_two_bucket_seqs()[:20], M.lut)
-    eng = port_engine.Engine("nw", M.matrix, (-4, 0, 0), device="cpu")
-    store = OutputStore(ss.num, triangular=False, spill=False)
-    with pytest.raises(NotImplementedError, match="A13"):
-        eng.align_all(ss, store, partition=(0, 2))
-    with pytest.raises(NotImplementedError, match="A13"):
-        eng.align_all(ss, store, merger=object())
 
 
 def test_schedule_token_matches_reference():
@@ -218,7 +205,7 @@ def test_cli_trace_flag(tmp_path):
 def test_cli_refuses_cpu_without_c_or_cuda(tmp_path, monkeypatch, capsys):
     """No CUDA device and no -C: the warning, then the reference's prompt.
     -F answers yes and the run goes on on the CPU; "n" on stdin refuses
-    and exits 1.  A multi-host environment exits 1 (A13)."""
+    and exits 1."""
     import io
 
     import torch
@@ -239,7 +226,3 @@ def test_cli_refuses_cpu_without_c_or_cuda(tmp_path, monkeypatch, capsys):
     got = capsys.readouterr()
     assert "Do you want to use the CPU instead?" in got.out
     assert "Failed to initialize CUDA device" in got.err
-    argv += ["-W", "-F"]
-    monkeypatch.setenv("SEQALIGN_TPU_COORDINATOR", "localhost:1234")
-    assert port_cli.run(argv + ["-C"]) == 1
-    assert os.environ["SEQALIGN_TPU_COORDINATOR"]

@@ -196,7 +196,7 @@ def test_copies_differ_from_reference_only_in_imports():
     ref = ROOT / "sequencealigner_tpu"
     copies = [p for p in PORT.rglob("*.py")
               if p.read_text().startswith("# Copy of sequencealigner_tpu/")]
-    assert len(copies) == 14
+    assert len(copies) == 15
     for p in copies:
         mine = p.read_text().splitlines()[1:]
         theirs = (ref / p.relative_to(PORT)).read_text().replace(

@@ -61,19 +61,20 @@ def _record_blocks(monkeypatch, cls):
     return seen
 
 
-def _port_run(seqs, algo, gaps, matrix=M, **kw):
+def _port_run(seqs, algo, gaps, matrix=M, target_cells=None, **kw):
     ss = SequenceSet.from_list(seqs, matrix.lut)
-    eng = port_engine.Engine(algo, matrix.matrix, gaps, device="cpu")
+    eng = port_engine.Engine(algo, matrix.matrix, gaps, device="cpu",
+                             target_cells=target_cells)
     store = OutputStore(ss.num, triangular=False, spill=False)
     stats = eng.align_all(ss, store, progress=False, **kw)
     mat = np.asarray(store.matrix).reshape(ss.num, ss.num)
     return mat, eng.schedule_token(ss.lengths), stats
 
 
-def _ref_run(seqs, algo, gaps):
+def _ref_run(seqs, algo, gaps, target_cells=None, matrix=M):
     ref = ref_engine.Engine(
-        algo, M.matrix, gaps, mesh=ref_engine.make_mesh("cpu", 1),
-        use_pallas=True, pallas_interpret=True,
+        algo, matrix.matrix, gaps, mesh=ref_engine.make_mesh("cpu", 1),
+        use_pallas=True, pallas_interpret=True, target_cells=target_cells,
     )
     rss = RefSequenceSet.from_list(seqs, M.lut)
     store = RefOutputStore(rss.num, triangular=False, spill=False)
@@ -82,15 +83,19 @@ def _ref_run(seqs, algo, gaps):
     return mat, ref.schedule_token(rss.lengths)
 
 
-def _compare_with_reference(monkeypatch, seqs, algo, gaps):
+def _compare_with_reference(monkeypatch, seqs, algo, gaps,
+                            target_cells=None, matrix=M):
     port_seen = _record_blocks(monkeypatch, scheduler.Schedule)
     ref_seen = _record_blocks(monkeypatch, ref_scheduler.Schedule)
-    got, token, stats = _port_run(seqs, algo, gaps)
-    want, ref_token = _ref_run(seqs, algo, gaps)
+    got, token, stats = _port_run(seqs, algo, gaps, matrix=matrix,
+                                  target_cells=target_cells)
+    want, ref_token = _ref_run(seqs, algo, gaps, matrix=matrix,
+                               target_cells=target_cells)
     np.testing.assert_array_equal(got, want)
     assert token.startswith("linear-v1") and token == ref_token
     assert port_seen and port_seen == ref_seen
     assert stats.pairs == len(seqs) * (len(seqs) - 1) // 2
+    return port_seen
 
 
 @pytest.mark.parametrize("algo,gaps", ALGO_GAPS)
@@ -112,6 +117,28 @@ def test_long_bucket_route_matches_reference(monkeypatch, algo, gaps):
     monkeypatch.setattr(pallas_dp, "W_MAX", 64)
     seqs = _seqs(5, 140, lambda rng: rng.integers(70, 91, 70))
     _compare_with_reference(monkeypatch, seqs, algo, gaps)
+
+
+@pytest.mark.parametrize("route", ["long", "wide"])
+def test_target_cells_sizes_blocks_as_the_reference(monkeypatch, route):
+    """Engine(target_cells=2^12) sizes the blocks of the combos the tile
+    geometry does not take as the reference's engine with the same
+    target_cells does (same matrix, token and block stream), in more
+    blocks than the default of 2^24 cells: a long bucket (edge 96 with
+    W_MAX patched to 64 in both packages, as above), or BLOSUM62 x 20."""
+    matrix = M
+    if route == "long":
+        for mod in (geometry, pallas_dp):
+            monkeypatch.setattr(mod, "W_MAX", 64)
+        seqs = _seqs(5, 140, lambda rng: rng.integers(70, 91, 30))
+    else:
+        matrix = _Wide(20)
+        seqs = _two_bucket_seqs()
+    small = _compare_with_reference(monkeypatch, seqs, "ga", (0, -10, -1),
+                                    target_cells=1 << 12, matrix=matrix)
+    default = _record_blocks(monkeypatch, scheduler.Schedule)
+    _port_run(seqs, "ga", (0, -10, -1), matrix=matrix)
+    assert len(small) > len(default)
 
 
 def _oracle_check(seqs, matrix, algo, gaps, mat, pairs):
