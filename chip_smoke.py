@@ -5,9 +5,11 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py [--seed 0]
 
-It builds the CUDA kernels from csrc/ and goes through eleven phases, each
-printing its own lines; any failure raises, so the exit code is non-zero
-and no result line is printed.
+It builds the CUDA kernels from csrc/ (into the git-ignored
+sequencealigner_tpu_torch/_build/, unless SEQALIGN_TPU_CACHE names another
+build directory) and goes through twelve phases, each printing its own
+lines; any failure raises, so the exit code is non-zero and no result line
+is printed.
 
   (a) the card (nvidia-smi name and power limit), torch, the kernel build;
   (b) each kernel against its plain PyTorch version on the card, NW/GA/SW,
@@ -98,7 +100,20 @@ and no result line is printed.
       of cells over the mean.  Then seqalign-torch -k as two hosts on 300
       proteins: host 0's output must equal a one-process run's, and the
       journals must be run.ckpt.h0 and .h1.  Every child has a deadline;
-      a child that fails or times out fails the phase.
+      a child that fails or times out fails the phase;
+  (l) the phase breakdown and the build cache: (d)'s main set under
+      tiles-v2 and under linear-v1, each on a new engine, once with
+      SEQALIGN_TPU_DEBUG_PHASES unset and once set (a new SequenceSet, so
+      both pack their buckets as a CLI run does): each matrix must equal
+      (d)'s, the unset run prints no [phases] line and the set run exactly
+      one, with the four keys of the reference (schedule+dispatch,
+      flush.materialize, flush.fetch_wait, final_flush), none negative;
+      the line is printed beside both walls and the launches.  Then fresh
+      processes load the kernel library with SEQALIGN_TPU_CACHE set to a
+      new temporary directory: the first builds into it (nvcc seconds > 0)
+      and adds nothing under the package, the second loads what the first
+      built (nvcc seconds 0); one under "0" builds into a private
+      directory that is gone after it exits.
 
 The second-to-last lines are the kernels' JSON record and the card's
 nvidia-smi line; the last line is the JSON result.  It needs no network and
@@ -118,6 +133,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -1035,6 +1051,120 @@ def phase_j(dev, M, raw, tiles_mat, card):
         f"{out['launches']}, cells {out['cells']}")
 
 
+#: Keys of the [phases] line with a store (the reference's, engine.py).
+PHASE_KEYS = {"schedule+dispatch", "flush.materialize", "flush.fetch_wait",
+              "final_flush"}
+
+#: A fresh process of (l): load the kernel library, say from where.
+LOAD_LIBRARY = (
+    "from sequencealigner_tpu_torch.ops import cuda_dp\n"
+    "lib = cuda_dp.load_library()\n"
+    "print(lib._name)\n"
+    "print(cuda_dp.build_seconds)\n"
+)
+
+
+def phases_run(eng, raw, lut, label, tiles_mat, phases: bool):
+    """One align_all of ``raw`` into a square store, with
+    SEQALIGN_TPU_DEBUG_PHASES set or unset; returns (wall, launches, the
+    [phases] line or None)."""
+    from sequencealigner_tpu_torch.io.input import SequenceSet
+    from sequencealigner_tpu_torch.io.output import OutputStore
+
+    n = len(raw)
+    ss = SequenceSet.from_list(raw, lut)
+    store = OutputStore(n, triangular=False, spill=False)
+    out = io.StringIO()
+    with mock.patch.dict(os.environ), contextlib.redirect_stdout(out):
+        os.environ.pop("SEQALIGN_TPU_DEBUG_PHASES", None)
+        if phases:
+            os.environ["SEQALIGN_TPU_DEBUG_PHASES"] = "1"
+        zero_launches()
+        t0 = time.perf_counter()
+        eng.align_all(ss, store, progress=False)
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    if not np.array_equal(np.asarray(store.matrix).reshape(n, n), tiles_mat):
+        raise AssertionError(f"{label}: matrix != (d)'s")
+    lines = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith("[phases]")]
+    if len(lines) != (1 if phases else 0):
+        raise AssertionError(f"{label}: [phases] lines {lines}")
+    return wall, launches, lines[0] if lines else None
+
+
+def load_in_process(env: dict):
+    """Start a fresh process that loads the kernel library under ``env``."""
+    return subprocess.Popen(
+        [sys.executable, "-c", LOAD_LIBRARY], cwd=ROOT,
+        env={**os.environ, **env, "PYTHONPATH": str(ROOT)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def loaded(proc, label):
+    """(library path, nvcc seconds) of a process of ``load_in_process``."""
+    out, err = proc.communicate(timeout=HOST_DEADLINE)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exited {proc.returncode}:\n{err}")
+    so, secs = out.splitlines()[-2:]
+    return Path(so), float(secs)
+
+
+def package_files() -> set:
+    pkg = ROOT / "sequencealigner_tpu_torch"
+    return {p for p in pkg.rglob("*") if "__pycache__" not in p.parts}
+
+
+def phase_l(dev, M, raw, tiles_mat, card):
+    """The phase breakdown and the build cache (see the head comment)."""
+    from sequencealigner_tpu_torch import engine
+    from sequencealigner_tpu_torch.tools import profile_main
+
+    gaps = (0, -10, -1)
+    for tag, build in (
+        ("tiles-v2", lambda: engine.Engine("ga", M.matrix, gaps, device=dev)),
+        ("linear-v1", lambda: profile_main.linear_engine("ga", M.matrix, gaps,
+                                                         dev)),
+    ):
+        label = f"(l) {tag}"
+        eng = build()
+        unset, _, _ = phases_run(eng, raw, M.lut, label, tiles_mat, False)
+        wall, launches, line = phases_run(eng, raw, M.lut, label, tiles_mat,
+                                          True)
+        parts = dict(p.split("=") for p in line.split()[1:])
+        ms = {k: float(v.removesuffix("ms")) for k, v in parts.items()}
+        if set(ms) != PHASE_KEYS | {"wall"} or min(ms.values()) < 0:
+            raise AssertionError(f"{label}: {line}")
+        if not launches["align_pairs"] or (
+                bool(launches["align_tiles"]) != (tag == "tiles-v2")):
+            raise AssertionError(f"{label}: launches {launches}")
+        log(f"{label} on {card}: matrix == (d)'s; wall {wall:.3f} s with "
+            f"SEQALIGN_TPU_DEBUG_PHASES, {unset:.3f} s without (no line); "
+            f"launches {launches}")
+        log(f"{label} {line}")
+    before = package_files()
+    with tempfile.TemporaryDirectory() as cache, \
+            tempfile.TemporaryDirectory() as tmp:
+        first = load_in_process({"SEQALIGN_TPU_CACHE": cache})
+        off = load_in_process({"SEQALIGN_TPU_CACHE": "0", "TMPDIR": tmp})
+        so, secs = loaded(first, "(l) first load")
+        so_off, secs_off = loaded(off, '(l) load under "0"')
+        so2, secs2 = loaded(load_in_process({"SEQALIGN_TPU_CACHE": cache}),
+                            "(l) second load")
+        if (secs <= 0 or so.parent != Path(cache) or not so.exists()
+                or package_files() != before):
+            raise AssertionError(f"(l) first load: {so}, {secs} s")
+        if so2 != so or secs2 != 0.0:
+            raise AssertionError(f"(l) second load: {so2}, {secs2} s")
+        if secs_off <= 0 or so_off.parent.parent != Path(tmp) \
+                or so_off.parent.exists():
+            raise AssertionError(f'(l) load under "0": {so_off}, {secs_off} s')
+    log(f"(l) kernel cache: first process built into a new SEQALIGN_TPU_CACHE "
+        f"(nvcc {secs:.2f} s), nothing new under the package; a second "
+        f"loaded it (nvcc {secs2:.2f} s); under \"0\" a private build (nvcc "
+        f"{secs_off:.2f} s) left no directory")
+
+
 #: Seconds a host process of (k) may take, start-up included.
 HOST_DEADLINE = 300
 
@@ -1180,6 +1310,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # Build into the checkout's git-ignored _build/, as before the cache.
+    os.environ.setdefault("SEQALIGN_TPU_CACHE",
+                          str(ROOT / "sequencealigner_tpu_torch" / "_build"))
     sys.path.insert(0, str(ROOT))
     if args.host_child:
         return host_child(args.host_child, args.workdir)
@@ -1227,6 +1360,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_k(rng, M, main_set, tiles_mat, card)
     log(f"(k) phase seconds {time.perf_counter() - t0:.1f} on {card}")
+    t0 = time.perf_counter()
+    phase_l(dev, M, main_set, tiles_mat, card)
+    log(f"(l) phase seconds {time.perf_counter() - t0:.1f} on {card}")
     # ms / plain_ms / bound_ms: GA at (b)'s multi-tile shape (one launch as
     # the engine sends a combo) for the tile kernel, at (b)'s multi-band 160
     # shape for the per-pair kernel and at (e)'s 80 x 70 shape for the grid

@@ -244,6 +244,29 @@ class _Lane:
             yield
 
 
+class _Phases:
+    """Seconds per phase of one ``align_all`` under
+    SEQALIGN_TPU_DEBUG_PHASES, under the reference's names: the main thread
+    and the flusher thread both add, so the sums overlap and are not parts
+    of the wall."""
+
+    def __init__(self):
+        self.sums: dict = {}
+        self._lock = threading.Lock()
+
+    def add(self, name: str, seconds: float) -> None:
+        with self._lock:
+            self.sums[name] = self.sums.get(name, 0.0) + seconds
+
+    def line(self, wall: float) -> str:
+        parts = "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in self.sums.items())
+        return f"[phases] wall={wall * 1e3:.1f}ms  {parts}"
+
+
+def _no_clock() -> float:
+    return 0.0
+
+
 @dataclasses.dataclass
 class AlignStats:
     pairs: int = 0
@@ -511,8 +534,20 @@ class Engine:
         is synced.
         limit_pairs: stop scheduling once this many pairs are claimed (the
         last block is finished, skipped blocks count), as the reference's
-        benchmarking cut."""
+        benchmarking cut.
+
+        With SEQALIGN_TPU_DEBUG_PHASES set, one line ``[phases] wall=...ms
+        schedule+dispatch=...ms ...`` goes to stdout at the end: the
+        reference's phases, summed over threads (``schedule+dispatch``:
+        packing and the dispatch loop; ``flush.materialize``: the blocks'
+        pair arrays; ``flush.fetch_wait``: the rest of the flush loop, that
+        is the wait for the scores and their selection; ``final_flush``:
+        the last flush and journal commit).  The scatter into the store and
+        the merger are in none of them."""
         host_id, nhosts = partition if partition else (0, 1)
+        phases = (_Phases() if os.environ.get("SEQALIGN_TPU_DEBUG_PHASES")
+                  else None)
+        clock = time.perf_counter if phases else _no_clock
         sched = Schedule.build(ss.lengths)
         tiles = self._tiles(sched)
         total_pairs = sched.total_pairs()
@@ -555,6 +590,7 @@ class Engine:
                 for e in batch:
                     e[3] = True
             ii, jj, sc, committed = [], [], [], []
+            t_loop, t_pairs = clock(), 0.0
             for entry in batch:
                 host, event, blks = entry[:3]
                 if event is not None:
@@ -565,7 +601,9 @@ class Engine:
                     scores = buf[off : off + blk.width]
                     off += blk.width
                     if keep:
+                        t = clock()
                         oi, oj, cells = blk.pairs()
+                        t_pairs += clock() - t
                         ii.append(oi)
                         jj.append(oj)
                         sc.append(blk.select_valid(scores).astype(np.int32))
@@ -576,6 +614,10 @@ class Engine:
                     stats.cells += cells
                     if bar and claimed[id(entry)]:
                         bar.add(blk.n_valid)
+            if phases:
+                if keep:
+                    phases.add("flush.materialize", t_pairs)
+                phases.add("flush.fetch_wait", clock() - t_loop - t_pairs)
             if merger is not None:
                 for oi, oj, s in resumed:
                     ii.append(oi)
@@ -800,17 +842,24 @@ class Engine:
                                   tail_min=TILE_B),
                 lambda g: self._dispatch_pairs(g, ctx, pending),
             )
+        if phases:
+            phases.add("schedule+dispatch", clock() - t0)
         if poller is not None:
             poll_stop.set()
             poller.join(timeout=2.0)
+        t_final = clock()
         flush(sync=True)
         join_flusher()
         if journal is not None and commit_backlog:
             # The run's last blocks are durable and journaled on return.
             sync_commit()
+        if phases:
+            phases.add("final_flush", clock() - t_final)
         if bar:
             bar.end()
         stats.seconds = time.perf_counter() - t0
+        if phases:
+            print(phases.line(stats.seconds), flush=True)
         stats.lane_launches = list(self._lane_launches)
         stats.lane_cells = (list(self._lane_cells) if len(self.lanes) > 1
                             else [stats.cells])

@@ -3,7 +3,7 @@
     python -m sequencealigner_tpu_torch.tools.dpx_rate [--iters 20000]
         [--repeats 3]
 
-Builds tools/dpx_rate.cu with nvcc (into the package's ``_build/``) and runs
+Builds tools/dpx_rate.cu with nvcc (into ``cuda_dp.cache_dir()``) and runs
 each of its kernels at full occupancy: one instruction kind alone (int32
 add, ``__viaddmax_s32``, ``__vimax3_s32``) and one NW / GA / SW cell's
 arithmetic, with independent chains per thread so that throughput, not
@@ -52,15 +52,9 @@ OPCODES = ("IADD3", "IMAD", "VIADDMNMX", "VIMNMX3", "VIMNMX", "IMNMX", "LOP3",
 def build() -> ctypes.CDLL:
     """nvcc the microbenchmark once per source hash; returns the library."""
     h = hashlib.sha256(cuda_dp.ARCH.encode() + SRC.read_bytes())
-    so = cuda_dp.BUILD_DIR / f"libdpx_rate-{h.hexdigest()[:16]}.so"
+    so = cuda_dp.cache_dir() / f"libdpx_rate-{h.hexdigest()[:16]}.so"
     if not so.exists():
-        cuda_dp.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        r = subprocess.run(
-            [cuda_dp._nvcc(), "-gencode", cuda_dp.ARCH, "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(so),
-             str(SRC)], capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{r.stderr}")
+        cuda_dp.nvcc_build(so, [SRC])
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dpx_rate_run.argtypes = [i, i, i, p, p, p]
