@@ -1,12 +1,11 @@
-# Copy of sequencealigner_tpu/benchmarks.py: only imports and source paths differ (dedupe: ROADMAP A15).
+# Port of sequencealigner_tpu/benchmarks.py: only imports, source paths and the docstring differ (dedupe: ROADMAP A15).
 """-B benchmark subsystem: per-phase accumulating wall timers + summary.
 
 Parity with the reference's benchmark UX (reference src/util/benchmark.c):
 phases input / filter / align / output, each printing "<Name>: N.NNN sec" when
 it completes, and a final "Performance Summary" with per-phase percentages,
-total, and alignments-per-second (benchmark.c:50-64).  TPU additions per
-SURVEY.md §5: a GCUPS readout (DP cell updates per second) and an optional
-jax.profiler trace.
+total, and alignments-per-second (benchmark.c:50-64).  An addition per
+SURVEY.md §5: a GCUPS readout (DP cell updates per second).
 """
 
 from __future__ import annotations

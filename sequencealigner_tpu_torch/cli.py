@@ -6,7 +6,8 @@ prompts and main() flow (parse/validate -> header -> configuration actions
 summary).  The engine runs the CUDA kernels; -C runs their plain PyTorch
 versions on the host CPU.  With no CUDA device and no -C the run warns and
 asks, as the reference does, whether to use the CPU instead (-F answers
-yes).  -t writes a torch.profiler trace of the alignment phase.  Under the
+yes).  -t writes one trace of the alignment phase: torch.profiler's
+device and host events with the engine's spans of both threads.  Under the
 multi-host environment of parallel/multihost.py every host scores its
 stripe of the blocks and merges at every flush; host 0 writes the HDF5.
 """
@@ -488,16 +489,20 @@ def run(argv: list[str] | None = None) -> int:
                      len(journal.done))
     prof = None
     if cfg.trace_dir:
+        import os
+        import time
+
         import torch
         from torch import profiler
 
         acts = [profiler.ProfilerActivity.CPU]
         if not cfg.no_device:
             acts.append(profiler.ProfilerActivity.CUDA)
-        prof = profiler.profile(
-            activities=acts,
-            on_trace_ready=profiler.tensorboard_trace_handler(cfg.trace_dir),
-        )
+        prof = profiler.profile(activities=acts)
+        # The engine records its spans for this run (trace.py).
+        recording = os.environ.get("SEQALIGN_TPU_DEBUG_PHASES")
+        os.environ["SEQALIGN_TPU_DEBUG_PHASES"] = "1"
+        t_trace = time.perf_counter()
         prof.start()
     try:
         with bench.phase("align"):
@@ -512,6 +517,12 @@ def run(argv: list[str] | None = None) -> int:
             if not cfg.no_device:
                 torch.cuda.synchronize()
             prof.stop()
+            if recording is None:
+                del os.environ["SEQALIGN_TPU_DEBUG_PHASES"]
+            else:
+                os.environ["SEQALIGN_TPU_DEBUG_PHASES"] = recording
+    if prof is not None:
+        write_trace(prof, cfg.trace_dir, t_trace)
     bench.note_cells(stats.cells)
     bench.phase_print("align")
 
@@ -530,6 +541,30 @@ def run(argv: list[str] | None = None) -> int:
 
     bench.total_print(alignments(ss.num))
     return 0
+
+
+def write_trace(prof, out_dir: str, since: float) -> None:
+    """-t's one trace file in ``out_dir``: the profiler's Chrome trace
+    (kernels, copies, host operators) with the engine's spans of the runs
+    recorded since ``since`` (trace.add_chrome_events: both threads, on
+    the trace's clock), named as torch's TensorBoard handler names its
+    files."""
+    import json
+    import os
+    import socket
+    import time
+
+    from . import trace
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / (f"{socket.gethostname()}_{os.getpid()}."
+                  f"{time.time_ns() // 1_000_000}.pt.trace.json")
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    trace.add_chrome_events(doc["traceEvents"],
+                            [r for r in trace.runs() if r.top.t0 >= since])
+    path.write_text(json.dumps(doc))
 
 
 def device_ready(cfg: Config) -> bool:

@@ -67,7 +67,7 @@ import zlib
 import numpy as np
 import torch
 
-from . import ui
+from . import trace, ui
 from .io.input import SequenceSet
 from .io.output import OutputStore
 from .ops import cuda_dp, geometry
@@ -242,29 +242,6 @@ class _Lane:
             return
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             yield
-
-
-class _Phases:
-    """Seconds per phase of one ``align_all`` under
-    SEQALIGN_TPU_DEBUG_PHASES, under the reference's names: the main thread
-    and the flusher thread both add, so the sums overlap and are not parts
-    of the wall."""
-
-    def __init__(self):
-        self.sums: dict = {}
-        self._lock = threading.Lock()
-
-    def add(self, name: str, seconds: float) -> None:
-        with self._lock:
-            self.sums[name] = self.sums.get(name, 0.0) + seconds
-
-    def line(self, wall: float) -> str:
-        parts = "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in self.sums.items())
-        return f"[phases] wall={wall * 1e3:.1f}ms  {parts}"
-
-
-def _no_clock() -> float:
-    return 0.0
 
 
 @dataclasses.dataclass
@@ -536,18 +513,33 @@ class Engine:
         last block is finished, skipped blocks count), as the reference's
         benchmarking cut.
 
-        With SEQALIGN_TPU_DEBUG_PHASES set, one line ``[phases] wall=...ms
-        schedule+dispatch=...ms ...`` goes to stdout at the end: the
-        reference's phases, summed over threads (``schedule+dispatch``:
-        packing and the dispatch loop; ``flush.materialize``: the blocks'
-        pair arrays; ``flush.fetch_wait``: the rest of the flush loop, that
-        is the wait for the scores and their selection; ``final_flush``:
-        the last flush and journal commit).  The scatter into the store and
-        the merger are in none of them."""
+        With SEQALIGN_TPU_DEBUG_PHASES set, the call records its spans
+        (trace.py: ``engine.align_all``; on the main thread ``engine.pack``,
+        ``engine.dispatch``, ``engine.flush_join`` and ``engine.final``;
+        per flush ``engine.flush`` with its cause, blocks, pairs and D2H
+        bytes, and inside it ``flush.fetch_wait``, ``flush.materialize``,
+        ``flush.select``, ``flush.scatter`` and ``flush.commit``) into
+        ``trace.runs()``, and prints one line ``[phases] wall=...ms
+        schedule+dispatch=...ms ...`` at the end, derived from them under
+        the reference's names: ``schedule+dispatch`` is pack and dispatch;
+        ``flush.materialize`` the blocks' pair arrays; ``flush.fetch_wait``
+        the rest of every flush but its scatter and journal commit, that
+        is the wait for the scores and their selection; ``final_flush``
+        the final span, the last flush and journal commit.  The flush
+        phases are summed over the main and flusher threads, so the four
+        are not parts of the wall."""
+        kw = dict(progress=progress, partition=partition, merger=merger,
+                  journal=journal, limit_pairs=limit_pairs)
+        if not os.environ.get("SEQALIGN_TPU_DEBUG_PHASES"):
+            return self._align_all(ss, store, None, **kw)
+        with trace.Run() as rec:
+            return self._align_all(ss, store, rec, **kw)
+
+    def _align_all(self, ss, store, rec, *, progress, partition, merger,
+                   journal, limit_pairs) -> AlignStats:
+        """align_all's body; ``rec`` is the trace.Run that records its
+        spans, or None."""
         host_id, nhosts = partition if partition else (0, 1)
-        phases = (_Phases() if os.environ.get("SEQALIGN_TPU_DEBUG_PHASES")
-                  else None)
-        clock = time.perf_counter if phases else _no_clock
         sched = Schedule.build(ss.lengths)
         tiles = self._tiles(sched)
         total_pairs = sched.total_pairs()
@@ -555,11 +547,21 @@ class Engine:
         bar = ui.Progress(total_pairs, "Aligning sequences") if progress else None
 
         t0 = time.perf_counter()
-        if self._bucket_cache is not None and self._bucket_cache[0] is ss:
+        cur = None  # the main thread's span that flushes start from
+        if rec:
+            span = rec.begin("engine.pack", rec.top)
+        hit = self._bucket_cache is not None and self._bucket_cache[0] is ss
+        if hit:
             buckets = self._bucket_cache[1]
         else:
             buckets = self._bucket_arrays(ss, sched, tiles)
             self._bucket_cache = (ss, buckets)
+        if rec:
+            rec.end(span, buckets=0 if hit else len(sched.buckets),
+                    h2d_bytes=0 if hit or not self._cuda else sum(
+                        t.nbytes for lane in buckets for codes, outer in lane
+                        for t in (*codes, *(outer or ()))))
+            cur = rec.begin("engine.dispatch", rec.top)
         self._lane_launches = [0] * len(self.lanes)
         self._lane_cells = [0] * len(self.lanes)
         self._cells = _BlockCells(sched)
@@ -579,46 +581,56 @@ class Engine:
         # Triplets are built when something takes them.
         keep = store is not None or merger is not None
 
-        def do_flush(batch):
+        def do_flush(batch, cause: str, parent, thread: str):
             """Fetch a claimed batch of dispatches, scatter its scores into
             the store (through the merger, if any) and commit its blocks to
             the journal (on the flusher thread, overlapping later
             dispatches, unless a merger runs; one flush at a time, so the
-            backlog needs no lock)."""
+            backlog needs no lock).  ``cause``, ``parent`` (the main
+            thread's span that started it) and ``thread`` are its span's."""
+            if rec:
+                fs = rec.begin("engine.flush", parent, thread)
             with self._plock:
                 claimed = {id(e): not e[3] for e in batch}
                 for e in batch:
                     e[3] = True
             ii, jj, sc, committed = [], [], [], []
-            t_loop, t_pairs = clock(), 0.0
             for entry in batch:
                 host, event, blks = entry[:3]
                 if event is not None:
+                    if rec:
+                        span = rec.begin("flush.fetch_wait", fs)
                     event.synchronize()
+                    if rec:
+                        rec.end(span)
                 buf = host.numpy()
-                off = 0
-                for idx, blk in blks:
-                    scores = buf[off : off + blk.width]
-                    off += blk.width
-                    if keep:
-                        t = clock()
-                        oi, oj, cells = blk.pairs()
-                        t_pairs += clock() - t
+                if keep:
+                    if rec:
+                        span = rec.begin("flush.materialize", fs)
+                    triplets = [blk.pairs() for _, blk in blks]
+                    if rec:
+                        rec.end(span)
+                        span = rec.begin("flush.select", fs)
+                    off = 0
+                    for (_, blk), (oi, oj, cells) in zip(blks, triplets):
                         ii.append(oi)
                         jj.append(oj)
-                        sc.append(blk.select_valid(scores).astype(np.int32))
-                    else:
-                        cells = blk.cells
+                        sc.append(blk.select_valid(buf[off : off + blk.width])
+                                  .astype(np.int32))
+                        off += blk.width
+                        stats.cells += cells
+                    if rec:
+                        rec.end(span)
+                else:
+                    stats.cells += sum(blk.cells for _, blk in blks)
+                for idx, blk in blks:
                     committed.append(idx)
                     stats.pairs += blk.n_valid
-                    stats.cells += cells
                     if bar and claimed[id(entry)]:
                         bar.add(blk.n_valid)
-            if phases:
-                if keep:
-                    phases.add("flush.materialize", t_pairs)
-                phases.add("flush.fetch_wait", clock() - t_loop - t_pairs)
             if merger is not None:
+                if rec:
+                    span = rec.begin("flush.scatter", fs)
                 for oi, oj, s in resumed:
                     ii.append(oi)
                     jj.append(oj)
@@ -632,15 +644,30 @@ class Engine:
                                    cat(sc, np.int32))
                 if store is not None and len(s):
                     store.fill_pairs(oi, oj, s)
+                if rec:
+                    rec.end(span, pairs=len(s) if store is not None else 0)
             elif sc:
-                store.fill_pairs(
-                    np.concatenate(ii), np.concatenate(jj), np.concatenate(sc)
-                )
+                if rec:
+                    span = rec.begin("flush.scatter", fs)
+                s = np.concatenate(sc)
+                store.fill_pairs(np.concatenate(ii), np.concatenate(jj), s)
+                if rec:
+                    rec.end(span, pairs=len(s))
             if journal is not None:
                 commit_backlog.extend(committed)
                 if (SYNC_INTERVAL <= 0
                         or time.perf_counter() - last_sync[0] >= SYNC_INTERVAL):
+                    if rec:
+                        span = rec.begin("flush.commit", fs)
                     sync_commit()
+                    if rec:
+                        rec.end(span)
+            if rec:
+                rec.end(fs, cause=cause, blocks=len(committed),
+                        pairs=sum(blk.n_valid for e in batch
+                                  for _, blk in e[2]),
+                        d2h_bytes=sum(e[0].nbytes for e in batch
+                                      if e[1] is not None))
 
         def sync_commit():
             """Scores durable first, then the journal entry naming them."""
@@ -652,17 +679,24 @@ class Engine:
 
         def join_flusher():
             if flusher:
+                if rec:
+                    span = rec.begin("engine.flush_join", cur)
                 flusher.pop().join()
+                if rec:
+                    rec.end(span)
             if flush_exc:
                 raise flush_exc.pop()
 
-        def run_flush(batch):
+        def run_flush(batch, cause, parent):
             try:
-                do_flush(batch)
+                do_flush(batch, cause, parent, "flusher")
             except BaseException as e:  # re-raised on the main thread at join
                 flush_exc.append(e)
 
-        def flush(sync: bool = False):
+        def flush(cause: str):
+            """Flush what is pending: ``forced`` at FLUSH_PAIRS, ``eager``
+            while the flusher is idle, on the flusher thread; ``final`` on
+            this thread."""
             nonlocal inflight
             join_flusher()
             with self._plock:
@@ -672,14 +706,17 @@ class Engine:
             if merger is not None:
                 # The merger runs collectives: on the main thread, at every
                 # flush point, even with nothing to flush (peers may send).
-                do_flush(batch)
+                if cause != "final":
+                    cause = "merger"
+            elif not batch:
                 return
-            if not batch:
-                return
-            if sync:
-                do_flush(batch)
+            if rec:
+                rec.count(cause)
+            if merger is not None or cause == "final":
+                do_flush(batch, cause, cur, "main")
             else:
-                t = threading.Thread(target=run_flush, args=(batch,), daemon=True)
+                t = threading.Thread(target=run_flush,
+                                     args=(batch, cause, cur), daemon=True)
                 flusher.append(t)
                 t.start()
 
@@ -718,10 +755,10 @@ class Engine:
             points flush, so every host reaches the same ones."""
             if inflight >= FLUSH_PAIRS:
                 dispatch()
-                flush()
+                flush("forced")
             elif merger is None and pending and (
                     not flusher or not flusher[0].is_alive()):
-                flush()
+                flush("eager")
 
         def reached() -> bool:
             return limit_pairs is not None and scheduled >= limit_pairs
@@ -782,7 +819,7 @@ class Engine:
                 if (idx is not None and whole and merger is None and not group
                         and inflight
                         and inflight + group_max * blk.width > FLUSH_PAIRS):
-                    flush()
+                    flush("forced")
                 inflight += blk.width
                 scheduled += blk.n_valid
                 if idx is not None:
@@ -842,25 +879,29 @@ class Engine:
                                   tail_min=TILE_B),
                 lambda g: self._dispatch_pairs(g, ctx, pending),
             )
-        if phases:
-            phases.add("schedule+dispatch", clock() - t0)
+        if rec:
+            rec.end(cur, launches=list(self._lane_launches))
         if poller is not None:
             poll_stop.set()
             poller.join(timeout=2.0)
-        t_final = clock()
-        flush(sync=True)
+        if rec:
+            cur = rec.begin("engine.final", rec.top)
+        flush("final")
         join_flusher()
         if journal is not None and commit_backlog:
             # The run's last blocks are durable and journaled on return.
             sync_commit()
-        if phases:
-            phases.add("final_flush", clock() - t_final)
+        if rec:
+            rec.end(cur)
         if bar:
             bar.end()
         stats.seconds = time.perf_counter() - t0
-        if phases:
-            print(phases.line(stats.seconds), flush=True)
         stats.lane_launches = list(self._lane_launches)
         stats.lane_cells = (list(self._lane_cells) if len(self.lanes) > 1
                             else [stats.cells])
+        if rec:
+            rec.top.attrs = {"pairs": stats.pairs, "cells": stats.cells,
+                             "lanes": len(self.lanes),
+                             "schedule": "tiles-v2" if tiles else "linear-v1"}
+            print(trace.phase_line(rec, stats.seconds, keep), flush=True)
         return stats

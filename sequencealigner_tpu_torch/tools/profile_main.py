@@ -1,16 +1,23 @@
 """Device-time profile of the engine on the card, per kernel.
 
     python -m sequencealigner_tpu_torch.tools.profile_main [--seed 1]
-        [--rounds 2] [--set main|wide|long]
+        [--rounds 2] [--set main|wide|long|tiles|short] [--cost PAIRS]
 
 Builds a set from ``--seed`` and aligns it into a full store, after one
 warm-up run per engine, ``--rounds`` times.  Every run is recorded with
-``torch.profiler`` and prints, per kernel, its device milliseconds, its
-launches, its bound and its share of the bound, and is followed by one run
-that is not profiled, for the wall time; all the matrices must be equal.
-It also prints nvcc's register report, and the registers and resident
-blocks per SM of the tile kernel and of both forms of the per-pair kernel.
-The sets (chip_smoke.py's):
+``torch.profiler`` and the engine's spans (trace.py) and prints, per
+kernel, its device milliseconds, its launches, its bound and its share of
+the bound, and the card's idle time split by what the host was doing at
+each idle gap's middle: the main thread's innermost span and the
+flusher's (``-`` for none).  Each is followed by one run that is not
+profiled, for the wall time; all the matrices must be equal.  It also
+prints nvcc's register report, and the registers and resident blocks per
+SM of the tile kernel and of both forms of the per-pair kernel.  With
+``--cost PAIRS`` it then times PAIRS pairs of jobs (a new Engine and
+store each, as a library caller makes them), one with
+SEQALIGN_TPU_DEBUG_PHASES unset and one with it set, in turns that swap
+which goes first, and prints the median job wall both ways.
+The sets (chip_smoke.py's, then two of other shapes):
 
   main  4096 proteins of 50-500 residues, GA BLOSUM62 open 10 extend 1,
         in turns under the tiles-v2 and the linear-v1 schedule
@@ -18,7 +25,10 @@ The sets (chip_smoke.py's):
   wide  512 proteins of 50-500 residues, GA 10/1 under BLOSUM62 x 20
         (int32 scores: the linear-v1 route);
   long  128 DNA sequences of 3,000-9,000 nt, SW NUC44 10/1 (buckets beyond
-        W_MAX: the linear-v1 route).
+        W_MAX: the linear-v1 route);
+  tiles 4096 proteins of 10-1,023 residues, log-normal lengths of median
+        300 (sigma 0.6, redrawn outside the range), GA BLOSUM62 10/1;
+  short 2048 peptides of 8-50 residues, GA BLOSUM62 10/1.
 
 The bound of a kernel is the true DP cells it scores (sum of l1 * l2 over
 its pairs) times the fewest SM clocks a cell needs, over 132 SMs x 1.98 GHz
@@ -37,15 +47,21 @@ Without a CUDA device it exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
+import io
+import json
 import os
 import re
+import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from sequencealigner_tpu_torch import engine, matrices
+from sequencealigner_tpu_torch import engine, matrices, trace
 from sequencealigner_tpu_torch.io.input import SequenceSet
 from sequencealigner_tpu_torch.io.output import OutputStore
 from sequencealigner_tpu_torch.ops import cuda_dp
@@ -80,6 +96,79 @@ def bound_ms(cells: int, algo: str) -> float:
 def proteins(rng, n: int, lo: int, hi: int) -> list:
     return [rng.choice(RESIDUES, int(rng.integers(lo, hi + 1)))
             for _ in range(n)]
+
+
+def lognormal_proteins(rng, n: int, median: float, sigma: float, lo: int,
+                       hi: int) -> list:
+    """``n`` proteins of log-normal lengths, each drawn again until it lies
+    in [lo, hi]."""
+    lens = np.zeros(n, np.int64)
+    bad = np.ones(n, bool)
+    while bad.any():
+        lens[bad] = np.rint(rng.lognormal(np.log(median), sigma, bad.sum()))
+        bad = (lens < lo) | (lens > hi)
+    return [rng.choice(RESIDUES, int(k)) for k in lens]
+
+
+@contextlib.contextmanager
+def recording(on: bool):
+    """SEQALIGN_TPU_DEBUG_PHASES set (or unset) inside, as it was after;
+    the engine's ``[phases]`` lines are dropped."""
+    old = os.environ.pop("SEQALIGN_TPU_DEBUG_PHASES", None)
+    if on:
+        os.environ["SEQALIGN_TPU_DEBUG_PHASES"] = "1"
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            yield
+    finally:
+        os.environ.pop("SEQALIGN_TPU_DEBUG_PHASES", None)
+        if old is not None:
+            os.environ["SEQALIGN_TPU_DEBUG_PHASES"] = old
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def idle_split(events: list) -> dict:
+    """Seconds the card ran nothing inside each ``engine.align_all`` of a
+    trace that holds the engine's spans (trace.add_chrome_events), by what
+    the host was doing at each idle gap's middle: ``"<main> / <flusher>"``,
+    each thread's innermost span there, ``engine.`` dropped, ``-`` for
+    none."""
+    spans = [e for e in events if e.get("cat") == "engine"
+             and e.get("ph") == "X"]
+    busy = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                  for e in events
+                  if e.get("cat") in DEVICE_CATS and e.get("ph") == "X")
+
+    def inner(thread: str, t: float) -> str:
+        at = [e for e in spans if e["args"]["thread"] == thread
+              and e["ts"] <= t <= e["ts"] + e["dur"]]
+        if not at:
+            return "-"
+        # The latest start, then the shortest: the innermost of nested spans.
+        span = max(at, key=lambda e: (e["ts"], -e["dur"]))
+        return span["name"].removeprefix("engine.")
+
+    out: dict = {}
+    for top in (e for e in spans if e["name"] == trace.TOP):
+        w0, w1 = top["ts"], top["ts"] + top["dur"]
+        edge = w0
+        gaps = []
+        for s, e in busy:
+            s, e = max(s, w0), min(e, w1)
+            if e <= s:
+                continue
+            if s > edge:
+                gaps.append((edge, s))
+            edge = max(edge, e)
+        if w1 > edge:
+            gaps.append((edge, w1))
+        for a, b in gaps:
+            mid = (a + b) / 2
+            label = f"{inner('main', mid)} / {inner('flusher', mid)}"
+            out[label] = out.get(label, 0.0) + (b - a) / 1e6
+    return out
 
 
 def tile_cells(lengths) -> int:
@@ -122,21 +211,30 @@ def _device_us(evt) -> float:
 
 
 def profiled_run(eng, ss: SequenceSet) -> dict:
-    """One align_all of ``ss`` into a square store under torch.profiler:
-    wall seconds, GCUPS, the matrix, and per kernel (wrapper name) device
-    ms and launches counted from zero just before the run."""
+    """One align_all of ``ss`` into a square store under torch.profiler,
+    recording the engine's spans: wall seconds, GCUPS, the matrix, per
+    kernel (wrapper name) device ms and launches counted from zero just
+    before the run, the card's idle split (idle_split), the run's flushes
+    by cause and its upload and score-copy bytes."""
     from torch.profiler import ProfilerActivity, profile
 
     store = OutputStore(ss.num, triangular=False, spill=False)
     for k in KERNELS:
         getattr(cuda_dp, k).launches = 0
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with recording(True), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         stats = eng.align_all(ss, store, progress=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    run, = (r for r in trace.runs() if r.top.t0 >= t0)
+    trace.add_chrome_events(events, [run])
     launches = {k: getattr(cuda_dp, k).launches for k in KERNELS}
     ms = dict.fromkeys(KERNELS, 0.0)
     for evt in prof.key_averages():
@@ -144,7 +242,13 @@ def profiled_run(eng, ss: SequenceSet) -> dict:
             if sym in evt.key:
                 ms[k] += _device_us(evt) / 1e3
     return {"wall": wall, "gcups": stats.gcups, "cells": stats.cells,
-            "ms": ms, "launches": launches,
+            "ms": ms, "launches": launches, "idle": idle_split(events),
+            "flushes": dict(sorted(run.causes.items())),
+            "spans": len(run.spans),
+            "h2d_bytes": sum(s.attrs["h2d_bytes"]
+                             for s in run.named("engine.pack")),
+            "d2h_bytes": sum(s.attrs["d2h_bytes"]
+                             for s in run.named("engine.flush")),
             "matrix": np.asarray(store.matrix).reshape(ss.num, ss.num)}
 
 
@@ -158,6 +262,35 @@ def timed_run(eng, ss: SequenceSet) -> dict:
     wall = time.perf_counter() - t0
     return {"wall": wall, "gcups": stats.cells / wall / 1e9,
             "matrix": np.asarray(store.matrix).reshape(ss.num, ss.num)}
+
+
+def cost_turns(make_engine, ss: SequenceSet, pairs: int, log=print) -> dict:
+    """``pairs`` pairs of jobs on ``ss``, each a new engine from
+    ``make_engine()``, a new square store and align_all, timed to its
+    return: one with recording off and one with it on, the first of each
+    pair swapping.  Returns and logs the median wall both ways and the
+    quartiles of the pairs' ratios (on over off: neighbours in time share
+    the host's drift)."""
+    walls: dict = {False: [], True: []}
+    for k in range(pairs):
+        for on in ((False, True) if k % 2 == 0 else (True, False)):
+            torch.cuda.synchronize()
+            with recording(on):
+                t0 = time.perf_counter()
+                eng = make_engine()
+                store = OutputStore(ss.num, triangular=False, spill=False)
+                eng.align_all(ss, store, progress=False)
+                walls[on].append(time.perf_counter() - t0)
+            del eng, store
+    off, on = (statistics.median(walls[x]) for x in (False, True))
+    ratios = [b / a for a, b in zip(walls[False], walls[True])]
+    q = statistics.quantiles(ratios, n=4) if pairs > 1 else ratios * 3
+    log(f"recording cost: {pairs} jobs each way, median job wall "
+        f"{off:.4f} s unset, {on:.4f} s set ({(on / off - 1) * 100:+.2f}%); "
+        f"pairs' ratio set/unset quartiles {q[0]:.4f} {q[1]:.4f} "
+        f"{q[2]:.4f}; walls unset {[round(w, 4) for w in walls[False]]}, "
+        f"set {[round(w, 4) for w in walls[True]]}")
+    return {"off": off, "on": on, "ratios": q, "walls": walls}
 
 
 def turns(engines: dict, ss: SequenceSet, bounds: dict, rounds: int,
@@ -241,14 +374,25 @@ def report(label: str, r: dict, bounds: dict, log=print) -> None:
         log(f"{label}: {k:11s} device {ms:.3f} ms in {r['launches'][k]} "
             f"launches ({ms / r['launches'][k]:.3f} ms each), bound "
             f"{b:.3f} ms, share of bound {share:.3f}")
+    idle = r.get("idle")
+    if idle:
+        log(f"{label}: {r['spans']} spans, flushes by cause "
+            f"{r['flushes']}, uploads {r['h2d_bytes']} bytes, score copies "
+            f"{r['d2h_bytes']} bytes")
+        total = sum(idle.values())
+        log(f"{label}: card idle {total * 1e3:.3f} ms, by host main / "
+            "flusher: " + ", ".join(
+                f"{k} {v * 1e3:.3f} ms ({v / total:.3f})"
+                for k, v in sorted(idle.items(), key=lambda kv: -kv[1])[:8]))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--set", choices=("main", "wide", "long"),
-                    default="main")
+    ap.add_argument("--set", choices=("main", "wide", "long", "tiles",
+                                      "short"), default="main")
+    ap.add_argument("--cost", type=int, default=0, metavar="PAIRS")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main: no CUDA device", file=sys.stderr)
@@ -265,7 +409,12 @@ def main(argv=None) -> int:
     else:
         algo, name = "ga", "blosum62"
         M = matrices.get(name)
-        raw = proteins(rng, 4096 if args.set == "main" else 512, 50, 500)
+        if args.set == "tiles":
+            raw = lognormal_proteins(rng, 4096, 300, 0.6, 10, 1023)
+        elif args.set == "short":
+            raw = proteins(rng, 2048, 8, 50)
+        else:
+            raw = proteins(rng, 4096 if args.set == "main" else 512, 50, 500)
     matrix = M.matrix
     if args.set == "wide":
         matrix, name = M.matrix.astype(np.int64) * 20, "blosum62 x 20"
@@ -273,6 +422,8 @@ def main(argv=None) -> int:
     if args.set == "main":
         engines = {"tiles-v2": engine.Engine(algo, matrix, gaps, device=dev),
                    "linear-v1": linear_engine(algo, matrix, gaps, dev)}
+    elif args.set in ("tiles", "short"):
+        engines = {"tiles-v2": engine.Engine(algo, matrix, gaps, device=dev)}
     else:  # the engine takes linear-v1 for these sets by itself
         engines = {"linear-v1": engine.Engine(algo, matrix, gaps,
                                               device=dev)}
@@ -290,6 +441,9 @@ def main(argv=None) -> int:
           f"{bounds}; {torch.cuda.get_device_name(0)}")
     turns(engines, ss, bounds, args.rounds)
     print("matrices of every run equal")
+    if args.cost:
+        cost_turns(functools.partial(engine.Engine, algo, matrix, gaps,
+                                     device=dev), ss, args.cost)
     return 0
 
 

@@ -196,7 +196,7 @@ def test_copies_differ_from_reference_only_in_imports():
     ref = ROOT / "sequencealigner_tpu"
     copies = [p for p in PORT.rglob("*.py")
               if p.read_text().startswith("# Copy of sequencealigner_tpu/")]
-    assert len(copies) == 15
+    assert len(copies) == 14
     for p in copies:
         mine = p.read_text().splitlines()[1:]
         theirs = (ref / p.relative_to(PORT)).read_text().replace(
@@ -207,3 +207,12 @@ def test_copies_differ_from_reference_only_in_imports():
             assert "import" in a or "sequencealigner_tpu_torch" in a, (p, a)
     assert zlib.crc32((PORT / "_matrix_data.npz").read_bytes()) == zlib.crc32(
         (ref / "_matrix_data.npz").read_bytes())
+    # benchmarks.py's docstring no longer names the JAX package's profiler
+    # trace, which the port has not; its code is still the reference's.
+
+    def code(path):
+        body = ast.parse(path.read_text()).body
+        assert isinstance(body[0], ast.Expr)  # the module docstring
+        return [ast.dump(node) for node in body[1:]]
+
+    assert code(PORT / "benchmarks.py") == code(ref / "benchmarks.py")
