@@ -68,11 +68,13 @@ import numpy as np
 import torch
 
 from . import trace, ui
+from .io import direct_fill
 from .io.input import SequenceSet
 from .io.output import OutputStore
 from .ops import cuda_dp, geometry
 from .ops.geometry import BIG_NEG, PAD
-from .scheduler import TILE_B, TILE_S, TRI_W, Block, Schedule
+from .scheduler import (TILE_B, TILE_S, TRI_W, Block, DiagBlock, Schedule,
+                        TileBlock)
 
 ALGOS = ("nw", "ga", "sw")
 
@@ -142,13 +144,14 @@ class _BlockCells:
     """True DP cells of a schedule's blocks without their per-pair arrays.
     The main thread needs them to send launch groups to entries and
     blocks to hosts; ``Block.cells`` builds the arrays with numpy, which
-    also takes the flusher's fused C pass (``Block.pairs``) away.  Tile
-    blocks count analytically already, and diagonal-remainder blocks build
-    their arrays at flush anyway: both keep their own ``cells``."""
+    also takes the flusher's fused C pass (``Block.pairs``) away, and
+    ``DiagBlock.cells`` builds them for slots the flusher's direct scatter
+    never needs as arrays.  Tile blocks count analytically already."""
 
     def __init__(self, sched: Schedule):
         self.psums = sched.length_psums()
         self.qsums: dict = {}
+        self.wsums: dict = {}
 
     def _q(self, b: int) -> np.ndarray:
         """q[r] = sum over rows t < r of len(t) * psum(t), for bucket b."""
@@ -158,7 +161,35 @@ class _BlockCells:
                 ([0], np.cumsum(np.diff(p) * p[:-1], dtype=np.int64)))
         return self.qsums[b]
 
+    def _diag_upto(self, b: int, t: int) -> int:
+        """Cells of bucket b's diagonal-remainder slots [0, t): window
+        u = t // TRI_W pairs rows u*TILE_B + j and u*TILE_B + i, i < j, at
+        slot j(j-1)/2 + i, over the rows the bucket has there."""
+        p, q = self.psums[b], self._q(b)
+        rows = len(p) - 1
+        if b not in self.wsums:
+            # wsums[b][u]: the cells of windows before u, each whole.
+            lo = np.arange(0, rows, TILE_B)
+            hi = np.minimum(lo + TILE_B, rows)
+            self.wsums[b] = np.concatenate(([0], np.cumsum(
+                q[hi] - q[lo] - p[lo] * (p[hi] - p[lo]))))
+        w = self.wsums[b]
+        u, loc = divmod(t, TRI_W)
+        base = u * TILE_B
+        if base >= rows:
+            return int(w[-1])
+        j, i = _tri_row(loc)
+        if j >= rows - base:  # past the bucket's last row: the whole window
+            j, i = rows - base, 0
+        out = w[u] + q[base + j] - q[base] - p[base] * (p[base + j] - p[base])
+        if i:
+            out += (p[base + j + 1] - p[base + j]) * (p[base + i] - p[base])
+        return int(out)
+
     def __call__(self, blk) -> int:
+        if isinstance(blk, DiagBlock):
+            return (self._diag_upto(blk.bucket, blk.start + blk.width)
+                    - self._diag_upto(blk.bucket, blk.start))
         if not isinstance(blk, Block):
             return blk.cells
         pk, pc = self.psums[blk.bucket_k], self.psums[blk.bucket_c]
@@ -522,7 +553,8 @@ class Engine:
         ``trace.runs()``, and prints one line ``[phases] wall=...ms
         schedule+dispatch=...ms ...`` at the end, derived from them under
         the reference's names: ``schedule+dispatch`` is pack and dispatch;
-        ``flush.materialize`` the blocks' pair arrays; ``flush.fetch_wait``
+        ``flush.materialize`` the blocks' pair arrays (0 where every group
+        took the direct scatter, which builds none); ``flush.fetch_wait``
         the rest of every flush but its scatter and journal commit, that
         is the wait for the scores and their selection; ``final_flush``
         the final span, the last flush and journal commit.  The flush
@@ -580,6 +612,10 @@ class Engine:
         flush_exc: list = []
         # Triplets are built when something takes them.
         keep = store is not None or merger is not None
+        # Tile and diagonal-remainder groups go straight from their score
+        # buffers into a plain-layout store, with no triplets
+        # (io/direct_fill.py); a merger takes triplets.
+        fill = direct_fill.filler(store) if merger is None else None
 
         def do_flush(batch, cause: str, parent, thread: str):
             """Fetch a claimed batch of dispatches, scatter its scores into
@@ -604,7 +640,15 @@ class Engine:
                     if rec:
                         rec.end(span)
                 buf = host.numpy()
-                if keep:
+                if fill is not None and isinstance(blks[0][1],
+                                                   (TileBlock, DiagBlock)):
+                    if rec:
+                        span = rec.begin("flush.scatter", fs)
+                    stats.cells += fill(buf, [blk for _, blk in blks])
+                    if rec:
+                        n = sum(blk.n_valid for _, blk in blks)
+                        rec.end(span, pairs=n, direct=n)
+                elif keep:
                     if rec:
                         span = rec.begin("flush.materialize", fs)
                     triplets = [blk.pairs() for _, blk in blks]
@@ -645,14 +689,15 @@ class Engine:
                 if store is not None and len(s):
                     store.fill_pairs(oi, oj, s)
                 if rec:
-                    rec.end(span, pairs=len(s) if store is not None else 0)
+                    rec.end(span, pairs=len(s) if store is not None else 0,
+                            direct=0)
             elif sc:
                 if rec:
                     span = rec.begin("flush.scatter", fs)
                 s = np.concatenate(sc)
                 store.fill_pairs(np.concatenate(ii), np.concatenate(jj), s)
                 if rec:
-                    rec.end(span, pairs=len(s))
+                    rec.end(span, pairs=len(s), direct=0)
             if journal is not None:
                 commit_backlog.extend(committed)
                 if (SYNC_INTERVAL <= 0

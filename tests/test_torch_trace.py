@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from sequencealigner_tpu_torch import cli, engine, matrices, trace
+from sequencealigner_tpu_torch.io import direct_fill
 from sequencealigner_tpu_torch.io.input import SequenceSet
 from sequencealigner_tpu_torch.io.output import OutputStore
 from sequencealigner_tpu_torch.tools import profile_main
@@ -110,8 +111,18 @@ def test_span_tree(monkeypatch, outer, full, flush_pairs):
     assert {f.thread for f in flushes} >= {"flusher"}
     if flush_pairs:
         assert run.causes.get("forced", 0) >= 1
-    scattered = sum(s.attrs["pairs"] for s in run.named("flush.scatter"))
+    scatters = run.named("flush.scatter")
+    scattered = sum(s.attrs["pairs"] for s in scatters)
     assert scattered == (stats.pairs if full else 0)
+    # Tiles-v2 into a plain store scatters every pair directly, with no
+    # pair arrays; linear-v1 takes the triplet path.
+    direct = full and outer == "1" and direct_fill.filler(
+        OutputStore(2, triangular=False, spill=False)) is not None
+    assert sum(s.attrs["direct"] for s in scatters) == (
+        stats.pairs if direct else 0)
+    if direct:
+        assert all(s.attrs["direct"] == s.attrs["pairs"] for s in scatters)
+        assert not run.named("flush.materialize")
     pack, = run.named("engine.pack")
     assert pack.attrs == {"buckets": 2, "h2d_bytes": 0}
     dispatch, = run.named("engine.dispatch")
@@ -168,6 +179,7 @@ def test_merger_flushes_on_the_main_thread(monkeypatch):
     assert run.causes["final"] == 1 and run.causes["merger"] >= 2
     assert sum(run.causes.values()) == len(flushes)
     assert len(run.named("flush.scatter")) == len(flushes)
+    assert all(s.attrs["direct"] == 0 for s in run.named("flush.scatter"))
     assert not run.named("engine.flush_join")
 
 
