@@ -143,10 +143,11 @@ def _diag_rows(lin, n_slots: int, rows: int):
 class _BlockCells:
     """True DP cells of a schedule's blocks without their per-pair arrays.
     The main thread needs them to send launch groups to entries and
-    blocks to hosts; ``Block.cells`` builds the arrays with numpy, which
-    also takes the flusher's fused C pass (``Block.pairs``) away, and
-    ``DiagBlock.cells`` builds them for slots the flusher's direct scatter
-    never needs as arrays.  Tile blocks count analytically already."""
+    blocks to hosts, and to count a traced run's launches; ``Block.cells``
+    builds the arrays with numpy, which also takes the flusher's fused C
+    pass (``Block.pairs``) away, and ``DiagBlock.cells`` builds them for
+    slots the flusher's direct scatter never needs as arrays.  Tile blocks
+    count analytically already."""
 
     def __init__(self, sched: Schedule):
         self.psums = sched.length_psums()
@@ -322,10 +323,11 @@ class Engine:
         # the uploads.
         self._bucket_cache: tuple | None = None
         # Launch groups and cells sent to each entry in the current run,
-        # and the run's block cells.
+        # the run's block cells, and the trace.Run that records it.
         self._lane_launches = [0] * len(self.lanes)
         self._lane_cells = [0] * len(self.lanes)
         self._cells = None
+        self._rec = None
 
     def _tiles(self, sched: Schedule) -> bool:
         """Whether a run over ``sched`` takes tiles-v2 (else linear-v1)."""
@@ -471,6 +473,16 @@ class Engine:
             return cuda_dp.tiles_per_launch(ntiles, cap)
         return geometry.pick_T(Lc, Lk)
 
+    def _counter(self, kernel: str, blks: list):
+        """The ``on_launch`` of a DP launch of (index, block) ``blks``: in a
+        recorded run, a count of the launch (trace.Run.launch) with its
+        valid pairs and true cells; None otherwise."""
+        if not self._rec:
+            return None
+        return functools.partial(
+            self._rec.launch, kernel, sum(blk.n_valid for _, blk in blks),
+            sum(self._cells(blk) for _, blk in blks))
+
     def _dispatch_tiles(self, blks: list, ctx: tuple, pending: list) -> None:
         """One tile-kernel launch for a group of (index, tile) on the entry
         ``_pick`` names: the only upload is the (T, 2) int32 descriptor
@@ -483,7 +495,7 @@ class Engine:
         with lane.on():
             out = cuda_dp.align_tiles(
                 self._put(desc, lane), cw, km, kl, lane.sub, lane.gaps,
-                algo=self.algo,
+                algo=self.algo, on_launch=self._counter("align_tiles", blks),
             )
             if self._int16_ok(Lc, Lk):
                 out = out.to(torch.int16)
@@ -507,7 +519,7 @@ class Engine:
             rc, rk = rows_of(lin)
             out = cuda_dp.align_pairs(
                 mat_c, mat_k, rc, rk, lens_c, lens_k, lane.sub, lane.gaps,
-                algo=self.algo,
+                algo=self.algo, on_launch=self._counter("align_pairs", blks),
             )
             if self._int16_ok(Lc, Lk):
                 out = out.to(torch.int16)
@@ -549,8 +561,9 @@ class Engine:
         ``engine.dispatch``, ``engine.flush_join`` and ``engine.final``;
         per flush ``engine.flush`` with its cause, blocks, pairs and D2H
         bytes, and inside it ``flush.fetch_wait``, ``flush.materialize``,
-        ``flush.select``, ``flush.scatter`` and ``flush.commit``) into
-        ``trace.runs()``, and prints one line ``[phases] wall=...ms
+        ``flush.select``, ``flush.scatter`` and ``flush.commit``) and counts
+        its DP launches (``Run.dp_launches``) into ``trace.runs()``, and
+        prints one line ``[phases] wall=...ms
         schedule+dispatch=...ms ...`` at the end, derived from them under
         the reference's names: ``schedule+dispatch`` is pack and dispatch;
         ``flush.materialize`` the blocks' pair arrays (0 where every group
@@ -596,7 +609,11 @@ class Engine:
             cur = rec.begin("engine.dispatch", rec.top)
         self._lane_launches = [0] * len(self.lanes)
         self._lane_cells = [0] * len(self.lanes)
-        self._cells = _BlockCells(sched)
+        # Block cells are counted only where something reads them: _pick
+        # over several entries, the striping over hosts, the launch counts.
+        self._cells = (_BlockCells(sched)
+                       if rec or nhosts > 1 or len(self.lanes) > 1 else None)
+        self._rec = rec
 
         stats = AlignStats()
         # [host scores, event, [(global block index, block)], claimed, entry]

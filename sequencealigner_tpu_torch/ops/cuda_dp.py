@@ -8,7 +8,10 @@ stream of the tensors' device (or raise): there is no fallback.  Each
 wrapper counts its launches in a plain integer attribute, e.g.
 ``align_tiles.launches``, and per device in ``launches_by_device`` (keyed
 by ``str(device)``), under the module's lock: the engine launches on
-several devices, and a caller may launch from several threads.  The wrappers
+several devices, and a caller may launch from several threads.
+``align_tiles`` and ``align_pairs`` also take an ``on_launch`` callback, to
+which they give the lanes per pair and the waves of the layout they ran,
+computed on the host from the shapes and the card.  The wrappers
 check devices, dtypes, shapes and contiguity; the row indices inside
 ``desc`` / ``rc`` / ``rk`` and the lengths are trusted (the engine derives
 them from the schedule), since reading them back would synchronise the
@@ -362,11 +365,36 @@ def pairs_layout(npairs: int, edge_c: int, edge_k: int, sms: int,
     per warp (WARP / G pairs each), four warps to a block; the scratch has
     one stream slot per group of G lanes."""
     g = pair_lanes(npairs, edge_k, sms, resident[0])
-    items = -(-npairs // (WARP // g))
-    blocks = -(-items // (LANE // WARP))
+    blocks = -(-_pair_items(npairs, g) // (LANE // WARP))
     grid, wmax, n = launch_layout(blocks, edge_c, edge_k > KB, sms,
                                   resident[g > 1], LANE // g)
     return g, grid, wmax, n
+
+
+def _pair_items(npairs: int, g: int) -> int:
+    """Warp items of an align_pairs launch of G lanes a pair."""
+    return -(-npairs // (WARP // g))
+
+
+def pairs_waves(npairs: int, g: int, edge_c: int, edge_k: int, sms: int,
+                resident: tuple) -> float:
+    """Waves of an align_pairs launch of ``pairs_layout``'s G: its warp
+    items over the warps of the largest grid its form (one-lane or split)
+    holds resident on the card, SMs x ``resident[g > 1]`` blocks as the
+    scratch allows, four warps each.  Below 1 part of the card idles;
+    above it the last wave runs ``waves % 1`` full."""
+    per_sm = resident[g > 1]
+    cap = launch_layout(sms * per_sm, edge_c, edge_k > KB, sms, per_sm,
+                        LANE // g)[0]
+    return _pair_items(npairs, g) / (cap * (LANE // WARP))
+
+
+def tiles_waves(ntiles: int, wmax: int, banded: bool, sms: int,
+                per_sm: int) -> float:
+    """Waves of an align_tiles launch of ``ntiles`` tiles: its block items
+    over the largest grid the card holds resident (``launch_layout``)."""
+    cap = launch_layout(sms * per_sm, wmax, banded, sms, per_sm)[0]
+    return ntiles * S_TILE / cap
 
 
 def tiles_per_launch(ntiles: int, cap: int) -> int:
@@ -401,13 +429,19 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} ({err})")
 
 
-def align_tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo: str):
+def align_tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo: str,
+                on_launch=None):
     """NW/GA/SW scores of T outer-product tiles -> (T, S_TILE, LANE) int32
-    (contract: torch_dp.align_tiles_plain)."""
+    (contract: torch_dp.align_tiles_plain).  ``on_launch``, where given, is
+    called after the launch with (1, ``tiles_waves``); on the CPU with
+    (1, 0.0), since the plain version has no grid."""
     if desc.device.type == "cpu":
-        return torch_dp.align_tiles_plain(
+        out = torch_dp.align_tiles_plain(
             desc, cwords, kmatT, klens, sub, gaps, algo=algo
         )
+        if on_launch:
+            on_launch(1, 0.0)
+        return out
     dev = desc.device
     if dev.type != "cuda":
         raise ValueError(f"align_tiles runs on CUDA or CPU tensors, not {dev}")
@@ -428,9 +462,9 @@ def align_tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo: str):
     lib = load_library()
     wmax = (cwords.shape[1] - 1) * 4
     with torch.cuda.device(dev):
+        per_sm = tiles_resident(algo)
         grid, scratch, wmax = _grid_and_scratch(
-            T * S_TILE, wmax, kmatT.shape[0] > KB, dev,
-            tiles_resident(algo),
+            T * S_TILE, wmax, kmatT.shape[0] > KB, dev, per_sm,
         )
         # The work counter, zeroed on the launch's stream.
         nxt = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -443,6 +477,9 @@ def align_tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo: str):
         )
     _raise_on(lib, err, "align_tiles")
     _count(align_tiles, dev)
+    if on_launch:
+        on_launch(1, tiles_waves(T, wmax, kmatT.shape[0] > KB, _sms(dev),
+                                 per_sm))
     return out
 
 
@@ -451,13 +488,18 @@ align_tiles.launches_by_device = {}
 
 
 def align_pairs(mat_c, mat_k, rc, rk, lens_c, lens_k, sub, gaps, *,
-                algo: str):
+                algo: str, on_launch=None):
     """NW/GA/SW scores of P arbitrary bucket-row pairs -> (P,) int32
-    (contract: torch_dp.align_pairs_plain)."""
+    (contract: torch_dp.align_pairs_plain).  ``on_launch``, where given, is
+    called after the launch with the (G, ``pairs_waves``) it ran; on the
+    CPU with (1, 0.0), since the plain version scores each pair whole."""
     if rc.device.type == "cpu":
-        return torch_dp.align_pairs_plain(
+        out = torch_dp.align_pairs_plain(
             mat_c, mat_k, rc, rk, lens_c, lens_k, sub, gaps, algo=algo
         )
+        if on_launch:
+            on_launch(1, 0.0)
+        return out
     dev = rc.device
     if dev.type != "cuda":
         raise ValueError(f"align_pairs runs on CUDA or CPU tensors, not {dev}")
@@ -478,9 +520,9 @@ def align_pairs(mat_c, mat_k, rc, rk, lens_c, lens_k, sub, gaps, *,
     lib = load_library()
     wc, wk = mat_c.shape[1], mat_k.shape[1]
     with torch.cuda.device(dev):
-        g, grid, wmax, nscratch = pairs_layout(
-            n, wc, wk, _sms(dev),
-            (pairs_resident(algo, False), pairs_resident(algo, True)))
+        sms = _sms(dev)
+        resident = (pairs_resident(algo, False), pairs_resident(algo, True))
+        g, grid, wmax, nscratch = pairs_layout(n, wc, wk, sms, resident)
         scratch = torch.empty(max(1, nscratch), dtype=torch.int32,
                               device=dev)
         # The work counter, zeroed on the launch's stream.
@@ -494,6 +536,8 @@ def align_pairs(mat_c, mat_k, rc, rk, lens_c, lens_k, sub, gaps, *,
         )
     _raise_on(lib, err, "align_pairs")
     _count(align_pairs, dev)
+    if on_launch:
+        on_launch(g, pairs_waves(n, g, wc, wk, sms, resident))
     return out
 
 

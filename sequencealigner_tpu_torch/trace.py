@@ -34,6 +34,15 @@ The spans of a run (engine.py), with their thread and attributes:
   ``direct``, those of them the direct path wrote.  Then
   ``flush.commit`` (a journal sync point).
 
+Beside the spans, a run counts its DP launches (``Run.dp_launches``, one
+``Launch`` each, in launch order, on the main thread): the wrapper
+(``align_tiles`` or ``align_pairs``), its valid pairs and true DP cells,
+which the engine counts from the blocks it holds, and the lanes per pair G
+and the waves of the layout the wrapper ran (``cuda_dp.pairs_waves`` and
+``tiles_waves``: the launch's items over the card's resident grid; G 1 for
+tiles, and waves 0 on the CPU, which has no grid).  All of it is counted
+on the host, with no device work.
+
 A flush's parent is the main-thread span that started it (``dispatch`` or
 ``final``).  Its cause: ``forced`` (FLUSH_PAIRS pairs in flight),
 ``eager`` (the flusher was idle with dispatches in flight), ``merger`` (a
@@ -60,6 +69,10 @@ import torch
 #: Finished runs kept, the newest last.
 KEEP = 4096
 TOP = "engine.align_all"
+
+#: One DP launch of a run (see the module's docstring).
+Launch = collections.namedtuple(
+    "Launch", ("kernel", "pairs", "cells", "lanes", "waves"))
 
 _runs: collections.deque = collections.deque(maxlen=KEEP)
 _span_ids = itertools.count(1)
@@ -90,6 +103,7 @@ class Run:
         self.id = next(_run_ids)
         self.spans: list = []
         self.causes: dict = {}
+        self.dp_launches: list = []
         self.top: Span | None = None
         self.profiled = False
         self._rf = None
@@ -115,6 +129,11 @@ class Run:
 
     def count(self, cause: str) -> None:
         self.causes[cause] = self.causes.get(cause, 0) + 1
+
+    def launch(self, kernel: str, pairs: int, cells: int, lanes: int,
+               waves: float) -> None:
+        """Counts one DP launch (``Launch``)."""
+        self.dp_launches.append(Launch(kernel, pairs, cells, lanes, waves))
 
     def __enter__(self) -> Run:
         if torch.autograd.profiler._is_profiler_enabled:
@@ -198,7 +217,9 @@ def add_chrome_events(events: list, recorded: list) -> int:
     are matched to its ``engine.align_all`` ranges, in order; each run's
     spans move by the offset between its two starts.  Each span becomes a
     complete event of category ``engine`` on its own thread's ``tid``,
-    with its attributes, ids and thread name as ``args``."""
+    with its attributes, ids and thread name as ``args``; the run's
+    ``engine.align_all`` event also holds its ``dp_launches``, one object
+    of ``Launch``'s fields each."""
     anchors = sorted((e for e in events
                       if e.get("name") == TOP and e.get("ph") == "X"
                       and e.get("cat") in ("cpu_op", "user_annotation")),
@@ -213,6 +234,8 @@ def add_chrome_events(events: list, recorded: list) -> int:
         for s in run.spans:
             args = {"id": s.id, "parent": s.parent, "run": s.run,
                     "thread": s.thread, **(s.attrs or {})}
+            if s is run.top:
+                args["dp_launches"] = [x._asdict() for x in run.dp_launches]
             events.append({"ph": "X", "cat": "engine", "name": s.name,
                            "pid": a.get("pid"), "tid": s.tid,
                            "ts": s.t0 * 1e6 + offset,

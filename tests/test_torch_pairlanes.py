@@ -69,11 +69,13 @@ def _launches(monkeypatch, raw, outer: str):
     over ``raw`` as the engine groups it, the kernels stubbed out."""
     seen = []
 
-    def pairs(mat_c, mat_k, rc, rk, lens_c, lens_k, sub, gaps, *, algo):
+    def pairs(mat_c, mat_k, rc, rk, lens_c, lens_k, sub, gaps, *, algo,
+              on_launch=None):
         seen.append((rc.shape[0], mat_k.shape[1]))
         return torch.zeros(rc.shape[0], dtype=torch.int32)
 
-    def tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo):
+    def tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo,
+              on_launch=None):
         return torch.zeros((desc.shape[0], geometry.S_TILE, geometry.LANE),
                            dtype=torch.int32)
 
@@ -86,6 +88,48 @@ def _launches(monkeypatch, raw, outer: str):
     eng = port_engine.Engine("ga", M.matrix, (0, -10, -1), device="cpu")
     eng.align_all(ss, None, progress=False)
     return seen
+
+
+def test_waves_of_a_launch(monkeypatch):
+    """cuda_dp.pairs_waves, which a traced run's launch counts read: a
+    launch's warp items over the warps of the resident grid of the form it
+    runs, the split form's for G > 1, as the scratch allows; more than one
+    wave exactly where pairs_layout's grid is the whole resident grid."""
+    # 256 genomes of 7,000-8,000 nt: 32,640 pairs at G 2 are 2,040 warp
+    # items on 132 SMs x 2 split blocks x 4 warps.
+    g = cuda_dp.pairs_layout(32640, 8064, 8064, SMS, RESIDENT)[0]
+    assert g == 2
+    assert cuda_dp.pairs_waves(32640, g, 8064, 8064, SMS,
+                               RESIDENT) == 2040 / (SMS * 2 * 4)
+    # Few pairs fill part of the card.
+    assert cuda_dp.pairs_waves(64, 4, 100, 100, SMS,
+                               RESIDENT) == 8 / (SMS * 2 * 4)
+    # Edges whose stream would pass SCRATCH_BYTES keep one block per SM.
+    assert cuda_dp.pairs_waves(10**7, 1, 2 << 20, 64, SMS,
+                               RESIDENT) == 10**7 // 32 / (SMS * 4)
+    for npairs in PAIRS:
+        for edge in EDGES:
+            g, grid, _, _ = cuda_dp.pairs_layout(npairs, edge, edge, SMS,
+                                                 RESIDENT)
+            waves = cuda_dp.pairs_waves(npairs, g, edge, edge, SMS,
+                                        RESIDENT)
+            blocks = -(-npairs * g // 32 // 4)
+            assert (waves > 1) == (grid < blocks)
+    assert cuda_dp.tiles_waves(33, 0, False, SMS, 1) == 33 * 128 / SMS
+
+
+def test_a_cpu_launch_reports_no_waves():
+    """On the CPU the wrappers' on_launch gets G 1 and no waves."""
+    seen = []
+    mat = torch.randint(0, 20, (4, 40), dtype=torch.int8,
+                        generator=torch.Generator().manual_seed(3))
+    lens = torch.tensor([40, 31, 25, 38], dtype=torch.int32)
+    rows = torch.tensor([0, 1, 2], dtype=torch.int32)
+    sub = torch.zeros((25, 25), dtype=torch.int32)
+    gaps = torch.tensor([0, -10, -1], dtype=torch.int32)
+    cuda_dp.align_pairs(mat, mat, rows, rows + 1, lens, lens, sub, gaps,
+                        algo="ga", on_launch=lambda *a: seen.append(a))
+    assert seen == [(1, 0.0)]
 
 
 def test_main_set_lanes(monkeypatch):

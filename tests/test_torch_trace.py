@@ -203,6 +203,55 @@ def test_unset_records_nothing(monkeypatch, outer, full):
                                       np.asarray(rec_store.matrix))
 
 
+@pytest.mark.parametrize("outer,full", MODES, ids=IDS)
+def test_launch_counts_hold_every_cell(monkeypatch, outer, full):
+    """A recorded run counts each DP launch once, on the CPU with G 1 and
+    no waves, and the launches hold every pair and true cell."""
+    stats, _, _, run = _run(monkeypatch, outer, full)
+    lengths = np.array([len(s) for s in _seqs()], np.int64)
+    cells = (lengths.sum() ** 2 - (lengths ** 2).sum()) // 2
+    launches = run.dp_launches
+    assert sum(x.cells for x in launches) == stats.cells == cells
+    assert sum(x.pairs for x in launches) == stats.pairs
+    dispatch, = run.named("engine.dispatch")
+    assert len(launches) == sum(dispatch.attrs["launches"])
+    assert {x.kernel for x in launches} == (
+        {"align_tiles", "align_pairs"} if outer == "1" else {"align_pairs"})
+    assert {(x.lanes, x.waves) for x in launches} == {(1, 0.0)}
+
+
+@pytest.mark.parametrize("outer", ["1", "0"], ids=["tiles-v2", "linear-v1"])
+def test_unset_counts_no_cells_on_one_entry(monkeypatch, outer):
+    """With recording off a run on one entry counts no launch and builds
+    no block cell counter (only _pick over several entries and the
+    striping over hosts read it)."""
+    def refuse(*a, **k):
+        raise AssertionError("counted with recording off on one entry")
+
+    monkeypatch.delenv("SEQALIGN_TPU_DEBUG_PHASES", raising=False)
+    monkeypatch.setattr(engine, "_BlockCells", refuse)
+    monkeypatch.setattr(trace.Run, "launch", refuse)
+    stats, out, store, run = _run(monkeypatch, outer, True, record=False)
+    assert run is None and "[phases]" not in out
+    assert stats.pairs == len(_seqs()) * (len(_seqs()) - 1) // 2
+
+
+def test_trace_file_holds_the_launch_counts():
+    """add_chrome_events gives the run's engine.align_all event its launch
+    counts, one object of Launch's fields each, and adds no event."""
+    run = trace.Run()
+    run.profiled = True
+    run.top = run.begin(trace.TOP, None, "main")
+    run.launch("align_pairs", 32640, 1_836_000_000_000, 2, 1.9318)
+    run.end(run.top)
+    events = [{"ph": "X", "cat": "cpu_op", "name": trace.TOP, "ts": 5.0,
+               "dur": 1.0, "pid": 1, "tid": 1}]
+    assert trace.add_chrome_events(events, [run]) == 1
+    assert events[-1]["args"]["dp_launches"] == [{
+        "kernel": "align_pairs", "pairs": 32640,
+        "cells": 1_836_000_000_000, "lanes": 2, "waves": 1.9318}]
+
+
 def test_spans_on_the_profilers_clock(monkeypatch):
     """Under a CPU torch.profiler the flusher's spans join the trace on
     their own thread, and the run's mapped end meets its profiler range's
