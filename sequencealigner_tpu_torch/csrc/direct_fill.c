@@ -1,14 +1,15 @@
-/* Direct scatter of tiles-v2 launch groups into the score store: scores
- * from a launch group's host buffer (int16 when `wide` is 0, else int32)
+/* Direct scatter of launch groups into the score store: tiles-v2 tiles and
+ * diagonal-remainder blocks, and linear-v1 superblocks.  Scores from a
+ * launch group's host buffer (int16 when `wide` is 0, else int32)
  * straight into a plain-layout store, `matrix` (dim x dim when `tri` is 0,
  * else packed triangular at j(j-1)/2 + i, i < j), with no per-pair index
  * arrays.  Rows and lanes are bucket rows in length-sorted order, mapped to
  * original indices through `order`; `lengths` are the sorted lengths.
  * Each function returns the true DP cells of the pairs it wrote, and runs
  * on `nthreads` threads: the caller and helpers of a pool that this file
- * keeps, which take tiles or blocks in turn.  Between groups the helpers
- * sleep on a condition variable: none waits spinning beside the engine's
- * own threads, as an OpenMP team's idle workers do.
+ * keeps, which take tiles, blocks or runs of slots in turn.  Between
+ * groups the helpers sleep on a condition variable: none waits spinning
+ * beside the engine's own threads, as an OpenMP team's idle workers do.
  *
  * Loaded through ctypes by io/direct_fill.py, which builds it with
  * gcc -O3 -march=native -pthread -shared -fPIC.
@@ -90,14 +91,15 @@ static inline int64_t scatter_tile(
     return cells;
 }
 
-/* One launch group: its scores, its units (tiles or diagonal blocks) and
- * the store; `next` is the next unit to take, shared by the group's
- * threads. */
+/* One launch group: its scores, its units (tiles, diagonal blocks or runs
+ * of a linear-v1 block's slots) and the store; `next` is the next unit to
+ * take, shared by the group's threads. */
 typedef struct {
     const void *s;
     int wide, tri;
     const int32_t *desc;   /* tiles: (c0, kt) a tile */
-    const int64_t *starts; /* diagonal blocks: first slot a block */
+    const int64_t *starts; /* diagonal, linear blocks: first slot a block */
+    const int64_t *nvalid; /* linear blocks: valid slots a block */
     int64_t n, width;
     const int64_t *order;
     const int32_t *lengths;
@@ -287,4 +289,91 @@ int64_t scatter_diag(const void *s, int32_t wide, const int64_t *starts,
                  .lengths = lengths, .c_start = b_start, .c_count = count,
                  .matrix = matrix, .dim = dim};
     return run_group(&g, diag_unit, nthreads);
+}
+
+/* (j, i) of triangle id `lin` = j(j-1)/2 + i, 0 <= i < j, in integers:
+ * j = (1 + isqrt(1 + 8 lin)) / 2, the square root digit by digit, then
+ * the +-1 correction. */
+static inline void tri_row(int64_t lin, int64_t *j, int64_t *i) {
+    uint64_t x = 1 + 8 * (uint64_t)lin, r = 0, bit = (uint64_t)1 << 62;
+    while (bit > x)
+        bit >>= 2;
+    for (; bit; bit >>= 2) {
+        if (x >= r + bit) {
+            x -= r + bit;
+            r = (r >> 1) + bit;
+        } else {
+            r >>= 1;
+        }
+    }
+    int64_t jj = (int64_t)(1 + r) / 2;
+    while (jj * (jj - 1) / 2 > lin)
+        jj--;
+    while ((jj + 1) * jj / 2 <= lin)
+        jj++;
+    *j = jj;
+    *i = lin - jj * (jj - 1) / 2;
+}
+
+/* Slots of a linear-v1 block that one unit takes. */
+#define LIN_RUN 4096
+
+/* Unit u of a linear-v1 group: slots [r * LIN_RUN, (r + 1) * LIN_RUN) of
+ * block b, u = b * runs + r, cut at the block's valid slots.  Slot t is
+ * combo-local pair id starts[b] + t: of one bucket (c_start == k_start),
+ * the triangle id rc(rc-1)/2 + rk, rk < rc; of two, rc * k_count + rk.
+ * The first slot's rows are inverted, the rest follow by counting. */
+static int64_t linear_unit(const group_t *g, int64_t u) {
+    const int64_t runs = (g->width + LIN_RUN - 1) / LIN_RUN;
+    const int64_t b = u / runs, lo = u % runs * LIN_RUN;
+    int64_t hi = lo + LIN_RUN;
+    hi = hi < g->nvalid[b] ? hi : g->nvalid[b];
+    if (lo >= hi)
+        return 0;
+    const int same = g->c_start == g->k_start; /* buckets never overlap */
+    const int64_t *order = g->order;
+    const int32_t *lengths = g->lengths;
+    const int64_t lin = g->starts[b] + lo;
+    int64_t rc, rk;
+    if (same) {
+        tri_row(lin, &rc, &rk);
+    } else {
+        rc = lin / g->k_count;
+        rk = lin % g->k_count;
+    }
+    int64_t end = same ? rc : g->k_count, cells = 0; /* rk < end */
+    for (int64_t t = lo; t < hi; t++) {
+        const int64_t sc = g->c_start + rc, sk = g->k_start + rk;
+        const int64_t oc = order[sc], ok = order[sk];
+        const int32_t v = score_at(g->s, g->wide, b * g->width + t);
+        put(g->matrix, g->dim, g->tri, oc, ok, v);
+        if (!g->tri)
+            put(g->matrix, g->dim, 0, ok, oc, v);
+        cells += (int64_t)lengths[sc] * lengths[sk];
+        if (++rk == end) {
+            rc++;
+            rk = 0;
+            end = same ? rc : end;
+        }
+    }
+    return cells;
+}
+
+/* A launch group of `nblocks` linear-v1 blocks of one combo, each `width`
+ * slots from combo-local pair id starts[b], the first nvalid[b] valid;
+ * the c bucket's rows from c_start of the sorted order, the k bucket's
+ * k_count rows from k_start (linear_unit). */
+int64_t scatter_linear(const void *s, int32_t wide, const int64_t *starts,
+                       const int64_t *nvalid, int64_t nblocks, int64_t width,
+                       const int64_t *order, const int32_t *lengths,
+                       int64_t c_start, int64_t k_start, int64_t k_count,
+                       int32_t *matrix, int64_t dim, int32_t tri,
+                       int32_t nthreads) {
+    group_t g = {.s = s, .wide = wide, .tri = tri, .starts = starts,
+                 .nvalid = nvalid,
+                 .n = nblocks * ((width + LIN_RUN - 1) / LIN_RUN),
+                 .width = width, .order = order, .lengths = lengths,
+                 .c_start = c_start, .k_start = k_start, .k_count = k_count,
+                 .matrix = matrix, .dim = dim};
+    return run_group(&g, linear_unit, nthreads);
 }

@@ -73,8 +73,7 @@ from .io.input import SequenceSet
 from .io.output import OutputStore
 from .ops import cuda_dp, geometry
 from .ops.geometry import BIG_NEG, PAD
-from .scheduler import (TILE_B, TILE_S, TRI_W, Block, DiagBlock, Schedule,
-                        TileBlock)
+from .scheduler import TILE_B, TILE_S, TRI_W, Block, DiagBlock, Schedule
 
 ALGOS = ("nw", "ga", "sw")
 
@@ -629,9 +628,9 @@ class Engine:
         flush_exc: list = []
         # Triplets are built when something takes them.
         keep = store is not None or merger is not None
-        # Tile and diagonal-remainder groups go straight from their score
-        # buffers into a plain-layout store, with no triplets
-        # (io/direct_fill.py); a merger takes triplets.
+        # Launch groups go straight from their score buffers into a
+        # plain-layout store, with no triplets (io/direct_fill.py); a
+        # merger takes triplets.
         fill = direct_fill.filler(store) if merger is None else None
 
         def do_flush(batch, cause: str, parent, thread: str):
@@ -657,8 +656,7 @@ class Engine:
                     if rec:
                         rec.end(span)
                 buf = host.numpy()
-                if fill is not None and isinstance(blks[0][1],
-                                                   (TileBlock, DiagBlock)):
+                if fill is not None:
                     if rec:
                         span = rec.begin("flush.scatter", fs)
                     stats.cells += fill(buf, [blk for _, blk in blks])

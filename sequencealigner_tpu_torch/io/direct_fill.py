@@ -1,19 +1,23 @@
-"""Direct scatter of tiles-v2 launch groups into the score store.
+"""Direct scatter of launch groups into the score store.
 
-A tile is a rectangle of length-sorted bucket rows, named by its first c
-row, its lane window and its two buckets; a diagonal-remainder block is a
-run of slot ids in one bucket's per-window triangles.  ``csrc/direct_fill.c``'s
-``scatter_tiles`` and ``scatter_diag`` read a launch group's score buffer as
-it came back from the device (int16 or int32), work out each slot's rows
-from those identities, skip invalid slots, map rows through
-``Schedule.order`` and write each score into the store's matrix: both
-mirrors of a full store, ``j(j-1)/2 + i`` of a triangular one.  One ctypes
-call per launch group, which holds no GIL while it runs, and no per-pair
-index arrays.  A call runs on a thread per tile or block of the group, up
-to the cores the process may run on (or ``-T``'s count): the caller and
-helpers of a pool that the C file keeps, which sleep between groups, so
-that none waits spinning beside the engine's own threads, as an OpenMP
-team's idle workers do.
+A tiles-v2 tile is a rectangle of length-sorted bucket rows, named by its
+first c row, its lane window and its two buckets; a diagonal-remainder
+block is a run of slot ids in one bucket's per-window triangles; a
+linear-v1 block is a run of consecutive pair ids of one bucket combo
+(the triangle id rc(rc-1)/2 + rk within a bucket, rc * count_k + rk
+across two), its valid ones first.  ``csrc/direct_fill.c``'s
+``scatter_tiles``, ``scatter_diag`` and ``scatter_linear`` read a launch
+group's score buffer as it came back from the device (int16 or int32),
+work out each slot's rows from those identities, skip invalid slots, map
+rows through ``Schedule.order`` and write each score into the store's
+matrix: both mirrors of a full store, ``j(j-1)/2 + i`` of a triangular
+one.  One ctypes call per launch group, which holds no GIL while it runs,
+and no per-pair index arrays.  A call runs on a thread per tile or block
+of the group, or per tile's worth of pairs of a linear-v1 group, up to the
+cores the process may run on (or ``-T``'s count): the caller and helpers
+of a pool that the C file keeps, which sleep between groups, so that none
+waits spinning beside the engine's own threads, as an OpenMP team's idle
+workers do.
 
 ``filler(store)`` gives the function that does this for ``store``, or None
 where it does not apply: a store other than a plain-layout OutputStore
@@ -31,7 +35,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import system
-from ..scheduler import TILE_B, TILE_S, DiagBlock, TileBlock
+from ..scheduler import TILE_B, TILE_S, Block, DiagBlock, TileBlock
 from . import native
 from .output import OutputStore
 
@@ -71,6 +75,9 @@ def _library() -> ctypes.CDLL | None:
         lib.scatter_diag.restype = i64
         lib.scatter_diag.argtypes = [vp, i32, vp, i64, i64, vp, vp, i64,
                                      i64, vp, i64, i32, i32]
+        lib.scatter_linear.restype = i64
+        lib.scatter_linear.argtypes = [vp, i32, vp, vp, i64, i64, vp, vp,
+                                       i64, i64, i64, vp, i64, i32, i32]
     _lib = lib
     return _lib
 
@@ -84,17 +91,19 @@ def _cores() -> int:
 
 
 def _team(units: int) -> int:
-    """Threads for a group of ``units`` tiles or blocks: one each, up to
-    the cores the process may run on, or to ``-T``'s count."""
+    """Threads for a group of ``units`` tiles or blocks, or tiles' worth of
+    pairs: one each, up to the cores the process may run on, or to
+    ``-T``'s count."""
     return max(1, min(units, system.THREAD_NUM or _cores()))
 
 
 def filler(store):
     """A function ``fill(buf, blocks) -> cells`` that scatters one launch
     group's scores ``buf`` (the group's host buffer, flat, block after
-    block) of ``blocks`` (all TileBlocks, or all DiagBlocks of one width)
-    into ``store`` and returns the true DP cells it wrote; None when the
-    direct path does not apply to ``store``.
+    block) of ``blocks`` (all TileBlocks, all DiagBlocks of one width, or
+    all linear-v1 Blocks of one combo and one width) into ``store`` and
+    returns the true DP cells it wrote; None when the direct path does not
+    apply to ``store``.
 
     A subclass of OutputStore that overrides ``fill_pairs`` keeps the
     triplet path, which calls its override; so does OutputStore itself
@@ -141,6 +150,23 @@ def filler(store):
                 buf.ctypes.data, wide, starts.ctypes.data, len(blocks),
                 first.width, order.ctypes.data, lengths.ctypes.data,
                 b.start, b.count, ptr, dim, tri, _team(len(blocks)))
+        if isinstance(first, Block):
+            n = len(blocks)
+            starts = np.fromiter((x.start for x in blocks), np.int64, n)
+            nvalid = np.fromiter((x.n_valid for x in blocks), np.int64, n)
+            if any(x.width != first.width for x in blocks):
+                raise ValueError("linear-v1 blocks of unequal widths")
+            npairs = sch.combo_pair_count(first.bucket_k, first.bucket_c)
+            if ((nvalid > first.width).any()
+                    or (starts + nvalid > npairs).any()):
+                raise ValueError("linear-v1 blocks past their combo")
+            bc, bk = sch.buckets[first.bucket_c], sch.buckets[first.bucket_k]
+            pairs = int(nvalid.sum())
+            return lib.scatter_linear(
+                buf.ctypes.data, wide, starts.ctypes.data,
+                nvalid.ctypes.data, n, first.width, order.ctypes.data,
+                lengths.ctypes.data, bc.start, bk.start, bk.count, ptr, dim,
+                tri, _team(-(-pairs // (TILE_S * TILE_B))))
         raise TypeError(f"no direct scatter for {type(first).__name__}")
 
     return fill

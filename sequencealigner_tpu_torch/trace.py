@@ -24,12 +24,12 @@ The spans of a run (engine.py), with their thread and attributes:
 - ``engine.flush`` (flusher, or main when synchronous): one flush;
   ``cause``, ``blocks``, ``pairs``, ``d2h_bytes``.
 - On its flush's thread, inside it: ``flush.fetch_wait`` (the wait for
-  one launch group's scores); on the direct path (a tiles-v2 group into a
-  plain-layout store, io/direct_fill.py) one ``flush.scatter`` a group,
-  its scores straight into the store; on the triplet path
-  ``flush.materialize`` (a group's pair arrays, Block.pairs),
-  ``flush.select`` (its valid scores as int32) and, once a flush,
-  ``flush.scatter`` (OutputStore.fill_pairs and the merger).  Every
+  one launch group's scores); on the direct path (a group into a
+  plain-layout store with no merger, io/direct_fill.py) one
+  ``flush.scatter`` a group, its scores straight into the store; on the
+  triplet path ``flush.materialize`` (a group's pair arrays,
+  Block.pairs), ``flush.select`` (its valid scores as int32) and, once a
+  flush, ``flush.scatter`` (OutputStore.fill_pairs and the merger).  Every
   ``flush.scatter`` has ``pairs``, the pairs it scattered, and
   ``direct``, those of them the direct path wrote.  Then
   ``flush.commit`` (a journal sync point).

@@ -1,15 +1,20 @@
-"""The flusher's direct scatter of tiles-v2 launch groups on the CPU
-(io/direct_fill.py; csrc/direct_fill.c's scatter_tiles and scatter_diag).
+"""The flusher's direct scatter of launch groups on the CPU
+(io/direct_fill.py; csrc/direct_fill.c's scatter_tiles, scatter_diag and
+scatter_linear).
 
 The store it fills equals, bit for bit, the store the triplet path fills
 (Block.pairs, select_valid, OutputStore.fill_pairs), with the same true
-cells; where it does not apply (a merger, the sorted-coordinate spill
-store, a ShardStore, linear-v1, SEQALIGN_TPU_NATIVE=0) the triplet path
-still runs; a journal cut and resumed on it gives the uncut run's store;
-the main thread counts diagonal-remainder cells without pair arrays."""
+cells, under tiles-v2 and linear-v1; linear-v1's triangle ids invert
+exactly up to 2^24 bucket rows; where it does not apply (a merger, the
+sorted-coordinate spill store, a ShardStore, SEQALIGN_TPU_NATIVE=0) the
+triplet path still runs, under either schedule; a journal cut and resumed
+on it gives the uncut run's store; the main thread counts
+diagonal-remainder cells without pair arrays."""
 
 import contextlib
+import dataclasses
 import io
+import types
 from unittest import mock
 
 import numpy as np
@@ -22,8 +27,8 @@ from sequencealigner_tpu_torch.io import direct_fill, native
 from sequencealigner_tpu_torch.io.input import SequenceSet
 from sequencealigner_tpu_torch.io.output import OutputStore
 from sequencealigner_tpu_torch.parallel.shard_store import ShardStore
-from sequencealigner_tpu_torch.scheduler import (TILE_B, DiagBlock, Schedule,
-                                                 TileBlock)
+from sequencealigner_tpu_torch.scheduler import (TILE_B, Block, DiagBlock,
+                                                 Schedule, TileBlock)
 
 # One intra-op thread: the test workers share the CPU's cores.
 torch.set_num_threads(1)
@@ -95,11 +100,29 @@ def _groups(sched, rng):
             k += len(g)
 
 
+def _linear_groups(sched, rng):
+    """Every launch group of the schedule under linear-v1: per combo its
+    blocks of one width (8 to 4,096 pairs, the last one partial; widths
+    shrink at the tail where the combo has a tail unit) in groups of equal
+    width, of 1 to several thousand blocks."""
+    for n, (a, b) in enumerate(sched.combos()):
+        width = (8, 4096, 64, 8, 512, 16)[n % 6]
+        blocks = list(sched.blocks(a, b, width=width,
+                                   tail_min=8 if n % 2 else None))
+        k = 0
+        while k < len(blocks):
+            g = [x for x in blocks[k : k + int(rng.integers(1, 4000))]
+                 if x.width == blocks[k].width]
+            yield g
+            k += len(g)
+
+
+@pytest.mark.parametrize("schedule", ["tiles-v2", "linear-v1"])
 @pytest.mark.parametrize("dtype", [np.int16, np.int32])
 @pytest.mark.parametrize("kind", ["full", "tri", "full-persist",
                                   "tri-persist", "full-spill", "tri-spill"])
 def test_direct_scatter_equals_the_triplet_path(direct, tmp_path, kind,
-                                                dtype):
+                                                dtype, schedule):
     """Every launch group of a three-bucket schedule, with random scores,
     several groups into one store: the direct scatter writes what the
     triplet path writes, nothing else, and counts the same cells."""
@@ -112,9 +135,17 @@ def test_direct_scatter_equals_the_triplet_path(direct, tmp_path, kind,
     fill = direct_fill.filler(mine)
     lim = np.iinfo(dtype).max // 2
     cells = {"direct": 0, "triplet": 0}
-    groups = list(_groups(sched, rng))
-    assert {type(g[0]) for g in groups} == {TileBlock, DiagBlock}
-    assert any(len(g) > 1 for g in groups if isinstance(g[0], DiagBlock))
+    if schedule == "tiles-v2":
+        groups = list(_groups(sched, rng))
+        assert {type(g[0]) for g in groups} == {TileBlock, DiagBlock}
+        assert any(len(g) > 1 for g in groups if isinstance(g[0], DiagBlock))
+    else:
+        groups = list(_linear_groups(sched, rng))
+        assert {type(g[0]) for g in groups} == {Block}
+        assert min(map(len, groups)) == 1 and max(map(len, groups)) > 2000
+        assert any(b.n_valid < b.width for g in groups for b in g)
+        combos = {(g[0].bucket_k == g[0].bucket_c) for g in groups}
+        assert combos == {True, False}  # triangles and rectangles
     for g in groups:
         buf = rng.integers(-lim, lim, sum(b.width for b in g)).astype(dtype)
         cells["direct"] += fill(buf, g)
@@ -133,9 +164,10 @@ def test_direct_scatter_equals_the_triplet_path(direct, tmp_path, kind,
 
 @pytest.mark.parametrize("team", [1, 2, 16])
 def test_any_team_writes_the_same_store(direct, monkeypatch, team):
-    """A group runs on a thread per tile or block, up to the process's
-    cores or -T's count; a team of any size writes the same store and
-    counts the same cells."""
+    """A group runs on a thread per tile or block, or per tile's worth of
+    linear-v1 pairs, up to the process's cores or -T's count; a team of
+    any size writes the same store and counts the same cells, under
+    either schedule."""
     from sequencealigner_tpu_torch import system
 
     assert direct_fill._team(1) == 1
@@ -146,7 +178,7 @@ def test_any_team_writes_the_same_store(direct, monkeypatch, team):
     rng = np.random.default_rng(9)
     sched = Schedule.build(_lengths(rng))
     n = len(sched.order)
-    groups = list(_groups(sched, rng))
+    groups = list(_groups(sched, rng)) + list(_linear_groups(sched, rng))
     bufs = [rng.integers(-9999, 9999, sum(b.width for b in g))
             .astype(np.int16) for g in groups]
     stores, cells = [], []
@@ -160,7 +192,51 @@ def test_any_team_writes_the_same_store(direct, monkeypatch, team):
             cells.append(sum(fill(buf, g) for buf, g in zip(bufs, groups)))
         stores.append(store.matrix)
     np.testing.assert_array_equal(stores[0], stores[1])
-    assert cells[0] == cells[1] == sched.total_cells()
+    assert cells[0] == cells[1] == 2 * sched.total_cells()
+
+
+def _tri(j: int) -> int:
+    """The first triangle id of row j."""
+    return j * (j - 1) // 2
+
+
+ROWS = 1 << 24  # the most rows a bucket has (scheduler.BUCKET_ROWS_MAX)
+
+
+@pytest.mark.parametrize("same,lin", [
+    *((True, x) for x in (
+        0, 1, 2, _tri(46_340) - 1, _tri(46_340), _tri(46_341) - 1,
+        _tri(46_341), _tri(46_342) - 1, _tri(46_342), 2**31 - 1, 2**31,
+        2**31 + 1, 2**32 + 12_345, _tri(ROWS - 1) - 1, _tri(ROWS - 1),
+        _tri(ROWS) - 1)),
+    *((False, x) for x in (
+        0, ROWS - 1, ROWS, 2**31 - 1, 2**31 + 7, ROWS * ROWS - 1)),
+], ids=lambda v: ("tri" if v else "rect") if isinstance(v, bool) else v)
+def test_linear_ids_invert_exactly(direct, same, lin):
+    """scatter_linear maps one pair id to its bucket rows exactly: the
+    triangle (rc(rc-1)/2 + rk, rk < rc, as engine._tri_row inverts it) at
+    row edges near 46,341 and 2^24 rows and past 2^31, and the rectangle
+    (rc * 2^24 + rk).  Only the two rows the id names lead into the store
+    and to lengths, so a wrong row writes elsewhere or counts 0 cells."""
+    rc, rk = engine._tri_row(lin) if same else divmod(lin, ROWS)
+    assert 0 <= rk < (rc if same else ROWS) and rc < ROWS
+    c_start = 0 if same else ROWS  # a second bucket after the first
+    # Zero pages but for the two rows read: 2^25 int64 and int32.
+    order = np.zeros(2 * ROWS, np.int64)
+    lengths = np.zeros(2 * ROWS, np.int32)
+    order[c_start + rc], order[rk] = 1, 2
+    lengths[c_start + rc], lengths[rk] = 3, 5
+    matrix = np.full((3, 3), SENTINEL, np.int32)
+    buf = np.array([777], np.int32)
+    starts, nvalid = np.array([lin], np.int64), np.array([1], np.int64)
+    cells = direct_fill._library().scatter_linear(
+        buf.ctypes.data, 1, starts.ctypes.data, nvalid.ctypes.data, 1, 1,
+        order.ctypes.data, lengths.ctypes.data, c_start, 0, ROWS,
+        matrix.ctypes.data, 3, 0, 1)
+    want = np.full((3, 3), SENTINEL, np.int32)
+    want[1, 2] = want[2, 1] = 777
+    np.testing.assert_array_equal(matrix, want)
+    assert cells == 15
 
 
 def _seqs():
@@ -225,17 +301,48 @@ def _identity(i, j, s):
     return i, j, s
 
 
-@pytest.mark.parametrize("case", ["merger", "sorted-spill", "shard-store",
-                                  "linear-v1", "no-native"])
+@pytest.mark.parametrize("wide", [False, True], ids=["int16", "int32"])
+@pytest.mark.parametrize("tri", [False, True], ids=["full", "tri"])
+def test_engine_direct_linear_run_equals_the_triplet_run(direct, monkeypatch,
+                                                         tri, wide):
+    """A linear-v1 run (SEQALIGN_TPU_OUTER=0) through the direct path fills
+    the store the triplet path fills, with equal pairs and cells; every
+    scatter span is direct and it builds no pair arrays."""
+    monkeypatch.setattr(engine, "FLUSH_PAIRS", 8192)
+    store = OutputStore(N, triangular=tri, spill=False)
+    stats, run = _align(monkeypatch, store, outer="0", wide=wide)
+    assert run.top.attrs["schedule"] == "linear-v1"
+    spans = run.named("flush.scatter")
+    assert len(spans) > 1
+    assert all(s.attrs["direct"] == s.attrs["pairs"] for s in spans)
+    assert _scattered(run) == (stats.pairs, stats.pairs)
+    assert stats.pairs == N * (N - 1) // 2
+    assert not run.named("flush.materialize")
+    with monkeypatch.context() as m:
+        m.setattr(direct_fill, "filler", lambda store: None)
+        ref = OutputStore(N, triangular=tri, spill=False)
+        ref_stats, ref_run = _align(m, ref, outer="0", wide=wide)
+    assert ref_run.named("flush.materialize")
+    assert _scattered(ref_run) == (stats.pairs, 0)
+    np.testing.assert_array_equal(store.matrix, ref.matrix)
+    assert (stats.pairs, stats.cells) == (ref_stats.pairs, ref_stats.cells)
+
+
+@pytest.mark.parametrize("case", [
+    "merger", "sorted-spill", "shard-store", "no-native", "merger-linear-v1",
+    "sorted-spill-linear-v1", "shard-store-linear-v1", "no-native-linear-v1"])
 def test_triplet_path_where_direct_does_not_apply(monkeypatch, case):
     """Under a merger, into the sorted-coordinate spill store or a
-    ShardStore, on linear-v1 and with SEQALIGN_TPU_NATIVE=0 every scatter
-    is the triplet path's (``direct`` 0), and the store holds the plain
-    run's scores."""
+    ShardStore and with SEQALIGN_TPU_NATIVE=0, on tiles-v2 and on
+    linear-v1, every scatter is the triplet path's (``direct`` 0), and the
+    store holds the plain run's scores."""
     monkeypatch.setattr(engine, "FLUSH_PAIRS", 8192)
     plain = OutputStore(N, triangular=True, spill=False)
     want_stats, _ = _align(monkeypatch, plain)
     kw: dict = {}
+    if case.endswith("-linear-v1"):
+        kw["outer"] = "0"
+        case = case.removesuffix("-linear-v1")
     store = OutputStore(N, triangular=True, spill=False)
     if case == "merger":
         kw["merger"] = _identity
@@ -246,17 +353,16 @@ def test_triplet_path_where_direct_does_not_apply(monkeypatch, case):
         assert store.pos is not None
     elif case == "shard-store":
         store = ShardStore(N, 0, N)
-    elif case == "linear-v1":
-        kw["outer"] = "0"
     else:
         monkeypatch.setenv("SEQALIGN_TPU_NATIVE", "0")
         monkeypatch.setattr(native, "_hostops", None)
         monkeypatch.setattr(native, "_hostops_tried", False)
         monkeypatch.setattr(direct_fill, "_lib", None)
         monkeypatch.setattr(direct_fill, "_lib_tried", False)
-    assert direct_fill.filler(store) is None or case in ("merger",
-                                                         "linear-v1")
+    assert direct_fill.filler(store) is None or case == "merger"
     stats, run = _align(monkeypatch, store, **kw)
+    assert run.top.attrs["schedule"] == ("linear-v1" if "outer" in kw
+                                         else "tiles-v2")
     spans = run.named("flush.scatter")
     assert spans and all(s.attrs["direct"] == 0 for s in spans)
     assert _scattered(run) == (stats.pairs, 0)
@@ -309,8 +415,8 @@ def test_cut_and_resumed_journal_run_equals_an_uncut_one(direct, tmp_path,
 def test_filler_refuses_what_it_cannot_fill(direct):
     """No direct fill for the sorted-coordinate layout, a ShardStore, a
     store with a scatter of its own (the direct path would bypass it) or
-    no store; blocks of linear-v1, and a buffer of the wrong size, are
-    refused."""
+    no store; a block of another kind, linear-v1 blocks of unequal widths
+    or past their combo, and a buffer of the wrong size, are refused."""
 
     class Counted(OutputStore):
         def fill_pairs(self, i, j, scores):
@@ -327,7 +433,14 @@ def test_filler_refuses_what_it_cannot_fill(direct):
     fill = direct_fill.filler(OutputStore(5, triangular=False, spill=False))
     blk = next(sched.blocks(0, 0, width=16))
     with pytest.raises(TypeError):
-        fill(np.zeros(16, np.int16), [blk])
+        fill(np.zeros(16, np.int16),
+             [types.SimpleNamespace(sched=sched, width=16)])
+    with pytest.raises(ValueError):
+        fill(np.zeros(24, np.int16),
+             [blk, dataclasses.replace(blk, width=8, n_valid=0)])
+    with pytest.raises(ValueError):
+        fill(np.zeros(16, np.int16), [dataclasses.replace(blk, start=1)])
+    assert fill(np.zeros(16, np.int16), [blk]) == blk.pairs()[2]
     tile = next(sched.tiles(0, 0), None) or next(
         sched.diag_blocks(0, TILE_B))
     with pytest.raises(ValueError):

@@ -114,9 +114,9 @@ def test_span_tree(monkeypatch, outer, full, flush_pairs):
     scatters = run.named("flush.scatter")
     scattered = sum(s.attrs["pairs"] for s in scatters)
     assert scattered == (stats.pairs if full else 0)
-    # Tiles-v2 into a plain store scatters every pair directly, with no
-    # pair arrays; linear-v1 takes the triplet path.
-    direct = full and outer == "1" and direct_fill.filler(
+    # Either schedule into a plain store scatters every pair directly,
+    # with no pair arrays.
+    direct = full and direct_fill.filler(
         OutputStore(2, triangular=False, spill=False)) is not None
     assert sum(s.attrs["direct"] for s in scatters) == (
         stats.pairs if direct else 0)
