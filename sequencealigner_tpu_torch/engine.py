@@ -34,10 +34,10 @@ other way round.
 
 Pair rows are inverted from one start id per block on the device.  Scores
 are narrowed to int16 on the device where they provably fit, copied to
-pinned host memory on the entry's stream, and scattered into the
-OutputStore by a background flusher thread while later dispatches run; a
-poller reads completion through ``torch.cuda.Event.query()`` for live
-progress.
+pinned host memory on the entry's stream, and handed to the flusher
+(flusher.py), which scatters them into the OutputStore on a background
+thread while later dispatches run; a poller reads completion through
+``torch.cuda.Event.query()`` for live progress.
 
 On ``device="cpu"`` the same schedules run through the kernels' plain
 PyTorch versions (the -C path, and what the CPU tests drive).
@@ -60,7 +60,6 @@ import dataclasses
 import functools
 import math
 import os
-import threading
 import time
 import zlib
 
@@ -68,7 +67,7 @@ import numpy as np
 import torch
 
 from . import trace, ui
-from .io import direct_fill
+from .flusher import Flusher
 from .io.input import SequenceSet
 from .io.output import OutputStore
 from .ops import cuda_dp, geometry
@@ -316,7 +315,6 @@ class Engine:
         self.max_sub = int(np.abs(np.asarray(sub, np.int64)).max())
         # Read at construction, as the reference does: 0 selects linear-v1.
         self.outer = os.environ.get("SEQALIGN_TPU_OUTER", "1") != "0"
-        self._plock = threading.Lock()  # guards the pending list (poller)
         # One-entry cache of the entries' bucket arrays, keyed by
         # SequenceSet identity: repeated align_all calls on one set skip
         # the uploads.
@@ -434,12 +432,13 @@ class Engine:
         self._lane_launches[k] += 1
         return k
 
-    def _enqueue(self, dev: torch.Tensor, part: list, pending: list,
+    def _enqueue(self, dev: torch.Tensor, part: list, flusher: Flusher,
                  lane: int) -> None:
         """Narrowed scores of ``part``, a list of (global block index,
-        block), -> host.  On CUDA the copy goes to pinned memory on the
-        entry's stream (the current one) and an event marks its
-        completion, so the flusher waits only for this dispatch."""
+        block), -> host, then to ``flusher``.  On CUDA the copy goes to
+        pinned memory on the entry's stream (the current one) and an event
+        marks its completion, so the flusher waits only for this
+        dispatch."""
         flat = dev.reshape(-1)
         event = None
         if self._cuda:
@@ -449,8 +448,7 @@ class Engine:
             event.record()
         else:
             host = flat
-        with self._plock:
-            pending.append([host, event, part, False, lane])
+        flusher.add(host, event, part, lane)
 
     @functools.cached_property
     def _fill_tiles(self) -> int:
@@ -482,7 +480,7 @@ class Engine:
             self._rec.launch, kernel, sum(blk.n_valid for _, blk in blks),
             sum(self._cells(blk) for _, blk in blks))
 
-    def _dispatch_tiles(self, blks: list, ctx: tuple, pending: list) -> None:
+    def _dispatch_tiles(self, blks: list, ctx: tuple, flusher) -> None:
         """One tile-kernel launch for a group of (index, tile) on the entry
         ``_pick`` names: the only upload is the (T, 2) int32 descriptor
         array."""
@@ -498,9 +496,9 @@ class Engine:
             )
             if self._int16_ok(Lc, Lk):
                 out = out.to(torch.int16)
-            self._enqueue(out, blks, pending, k)
+            self._enqueue(out, blks, flusher, k)
 
-    def _dispatch_pairs(self, blks: list, ctx: tuple, pending: list) -> None:
+    def _dispatch_pairs(self, blks: list, ctx: tuple, flusher) -> None:
         """One per-pair launch for equal-width (index, block) pairs
         (linear-v1 superblocks or diagonal-remainder blocks) on the entry
         ``_pick`` names: one int64 start id per block goes up, ``rows_of``
@@ -522,7 +520,7 @@ class Engine:
             )
             if self._int16_ok(Lc, Lk):
                 out = out.to(torch.int16)
-            self._enqueue(out, blks, pending, k)
+            self._enqueue(out, blks, flusher, k)
 
     def align_all(
         self,
@@ -555,23 +553,9 @@ class Engine:
         last block is finished, skipped blocks count), as the reference's
         benchmarking cut.
 
-        With SEQALIGN_TPU_DEBUG_PHASES set, the call records its spans
-        (trace.py: ``engine.align_all``; on the main thread ``engine.pack``,
-        ``engine.dispatch``, ``engine.flush_join`` and ``engine.final``;
-        per flush ``engine.flush`` with its cause, blocks, pairs and D2H
-        bytes, and inside it ``flush.fetch_wait``, ``flush.materialize``,
-        ``flush.select``, ``flush.scatter`` and ``flush.commit``) and counts
-        its DP launches (``Run.dp_launches``) into ``trace.runs()``, and
-        prints one line ``[phases] wall=...ms
-        schedule+dispatch=...ms ...`` at the end, derived from them under
-        the reference's names: ``schedule+dispatch`` is pack and dispatch;
-        ``flush.materialize`` the blocks' pair arrays (0 where every group
-        took the direct scatter, which builds none); ``flush.fetch_wait``
-        the rest of every flush but its scatter and journal commit, that
-        is the wait for the scores and their selection; ``final_flush``
-        the final span, the last flush and journal commit.  The flush
-        phases are summed over the main and flusher threads, so the four
-        are not parts of the wall."""
+        With SEQALIGN_TPU_DEBUG_PHASES set, the call records its spans and
+        DP launches into ``trace.runs()`` (trace.py lists them) and prints
+        the reference's ``[phases]`` line at the end (``trace.phase_line``)."""
         kw = dict(progress=progress, partition=partition, merger=merger,
                   journal=journal, limit_pairs=limit_pairs)
         if not os.environ.get("SEQALIGN_TPU_DEBUG_PHASES"):
@@ -589,223 +573,13 @@ class Engine:
         total_pairs = sched.total_pairs()
         ui.pinfo("Performing %d pairwise alignments", total_pairs)
         bar = ui.Progress(total_pairs, "Aligning sequences") if progress else None
-
-        t0 = time.perf_counter()
-        cur = None  # the main thread's span that flushes start from
-        if rec:
-            span = rec.begin("engine.pack", rec.top)
-        hit = self._bucket_cache is not None and self._bucket_cache[0] is ss
-        if hit:
-            buckets = self._bucket_cache[1]
-        else:
-            buckets = self._bucket_arrays(ss, sched, tiles)
-            self._bucket_cache = (ss, buckets)
-        if rec:
-            rec.end(span, buckets=0 if hit else len(sched.buckets),
-                    h2d_bytes=0 if hit or not self._cuda else sum(
-                        t.nbytes for lane in buckets for codes, outer in lane
-                        for t in (*codes, *(outer or ()))))
-            cur = rec.begin("engine.dispatch", rec.top)
-        self._lane_launches = [0] * len(self.lanes)
-        self._lane_cells = [0] * len(self.lanes)
-        # Block cells are counted only where something reads them: _pick
-        # over several entries, the striping over hosts, the launch counts.
-        self._cells = (_BlockCells(sched)
-                       if rec or nhosts > 1 or len(self.lanes) > 1 else None)
-        self._rec = rec
-
         stats = AlignStats()
-        # [host scores, event, [(global block index, block)], claimed, entry]
-        pending: list = []
-        commit_backlog: list = []  # flushed block indices awaiting a sync
-        resumed: list = []  # journaled blocks' triplets for the merger
-        last_sync = [time.perf_counter()]
-        inflight = 0
-        scheduled = 0  # pairs claimed so far (limit_pairs)
-        gidx = 0  # global index of the next block the schedule yields
-        loads = np.zeros(nhosts, np.int64)  # cells owned per host so far
-        flusher: list = []  # at most one outstanding async flush
-        flush_exc: list = []
-        # Triplets are built when something takes them.
-        keep = store is not None or merger is not None
-        # Launch groups go straight from their score buffers into a
-        # plain-layout store, with no triplets (io/direct_fill.py); a
-        # merger takes triplets.
-        fill = direct_fill.filler(store) if merger is None else None
+        # The walk's state (flusher, inflight, ...) is set in engine.dispatch.
 
-        def do_flush(batch, cause: str, parent, thread: str):
-            """Fetch a claimed batch of dispatches, scatter its scores into
-            the store (through the merger, if any) and commit its blocks to
-            the journal (on the flusher thread, overlapping later
-            dispatches, unless a merger runs; one flush at a time, so the
-            backlog needs no lock).  ``cause``, ``parent`` (the main
-            thread's span that started it) and ``thread`` are its span's."""
-            if rec:
-                fs = rec.begin("engine.flush", parent, thread)
-            with self._plock:
-                claimed = {id(e): not e[3] for e in batch}
-                for e in batch:
-                    e[3] = True
-            ii, jj, sc, committed = [], [], [], []
-            for entry in batch:
-                host, event, blks = entry[:3]
-                if event is not None:
-                    if rec:
-                        span = rec.begin("flush.fetch_wait", fs)
-                    event.synchronize()
-                    if rec:
-                        rec.end(span)
-                buf = host.numpy()
-                if fill is not None:
-                    if rec:
-                        span = rec.begin("flush.scatter", fs)
-                    stats.cells += fill(buf, [blk for _, blk in blks])
-                    if rec:
-                        n = sum(blk.n_valid for _, blk in blks)
-                        rec.end(span, pairs=n, direct=n)
-                elif keep:
-                    if rec:
-                        span = rec.begin("flush.materialize", fs)
-                    triplets = [blk.pairs() for _, blk in blks]
-                    if rec:
-                        rec.end(span)
-                        span = rec.begin("flush.select", fs)
-                    off = 0
-                    for (_, blk), (oi, oj, cells) in zip(blks, triplets):
-                        ii.append(oi)
-                        jj.append(oj)
-                        sc.append(blk.select_valid(buf[off : off + blk.width])
-                                  .astype(np.int32))
-                        off += blk.width
-                        stats.cells += cells
-                    if rec:
-                        rec.end(span)
-                else:
-                    stats.cells += sum(blk.cells for _, blk in blks)
-                for idx, blk in blks:
-                    committed.append(idx)
-                    stats.pairs += blk.n_valid
-                    if bar and claimed[id(entry)]:
-                        bar.add(blk.n_valid)
-            if merger is not None:
-                if rec:
-                    span = rec.begin("flush.scatter", fs)
-                for oi, oj, s in resumed:
-                    ii.append(oi)
-                    jj.append(oj)
-                    sc.append(s)
-                resumed.clear()
-
-                def cat(xs, dt):
-                    return np.concatenate(xs) if xs else np.zeros(0, dt)
-
-                oi, oj, s = merger(cat(ii, np.int64), cat(jj, np.int64),
-                                   cat(sc, np.int32))
-                if store is not None and len(s):
-                    store.fill_pairs(oi, oj, s)
-                if rec:
-                    rec.end(span, pairs=len(s) if store is not None else 0,
-                            direct=0)
-            elif sc:
-                if rec:
-                    span = rec.begin("flush.scatter", fs)
-                s = np.concatenate(sc)
-                store.fill_pairs(np.concatenate(ii), np.concatenate(jj), s)
-                if rec:
-                    rec.end(span, pairs=len(s), direct=0)
-            if journal is not None:
-                commit_backlog.extend(committed)
-                if (SYNC_INTERVAL <= 0
-                        or time.perf_counter() - last_sync[0] >= SYNC_INTERVAL):
-                    if rec:
-                        span = rec.begin("flush.commit", fs)
-                    sync_commit()
-                    if rec:
-                        rec.end(span)
-            if rec:
-                rec.end(fs, cause=cause, blocks=len(committed),
-                        pairs=sum(blk.n_valid for e in batch
-                                  for _, blk in e[2]),
-                        d2h_bytes=sum(e[0].nbytes for e in batch
-                                      if e[1] is not None))
-
-        def sync_commit():
-            """Scores durable first, then the journal entry naming them."""
-            if store is not None:
-                store.sync()
-            journal.commit(commit_backlog)
-            commit_backlog.clear()
-            last_sync[0] = time.perf_counter()
-
-        def join_flusher():
-            if flusher:
-                if rec:
-                    span = rec.begin("engine.flush_join", cur)
-                flusher.pop().join()
-                if rec:
-                    rec.end(span)
-            if flush_exc:
-                raise flush_exc.pop()
-
-        def run_flush(batch, cause, parent):
-            try:
-                do_flush(batch, cause, parent, "flusher")
-            except BaseException as e:  # re-raised on the main thread at join
-                flush_exc.append(e)
-
-        def flush(cause: str):
-            """Flush what is pending: ``forced`` at FLUSH_PAIRS, ``eager``
-            while the flusher is idle, on the flusher thread; ``final`` on
-            this thread."""
+        def flush(cause: str) -> None:
             nonlocal inflight
-            join_flusher()
-            with self._plock:
-                batch = list(pending)
-                pending.clear()
+            flusher.flush(cause)
             inflight = 0
-            if merger is not None:
-                # The merger runs collectives: on the main thread, at every
-                # flush point, even with nothing to flush (peers may send).
-                if cause != "final":
-                    cause = "merger"
-            elif not batch:
-                return
-            if rec:
-                rec.count(cause)
-            if merger is not None or cause == "final":
-                do_flush(batch, cause, cur, "main")
-            else:
-                t = threading.Thread(target=run_flush,
-                                     args=(batch, cause, cur), daemon=True)
-                flusher.append(t)
-                t.start()
-
-        def poll_progress(stop):
-            # Live progress between flushes: Event.query() is a non-blocking
-            # completion probe of each entry's oldest unclaimed dispatch
-            # (completion is in order on one stream).
-            while not stop.wait(0.25):
-                heads = {}
-                with self._plock:
-                    for x in pending:
-                        if not x[3]:
-                            heads.setdefault(x[4], x)
-                for e in heads.values():
-                    if e[1] is not None and not e[1].query():
-                        continue
-                    with self._plock:
-                        if e[3]:
-                            continue
-                        e[3] = True
-                    bar.add(sum(blk.n_valid for _, blk in e[2]))
-
-        poll_stop = threading.Event()
-        poller = None
-        if bar:
-            poller = threading.Thread(
-                target=poll_progress, args=(poll_stop,), daemon=True
-            )
-            poller.start()
 
         def pace(dispatch) -> None:
             """Flush at FLUSH_PAIRS; otherwise, without a merger, when the
@@ -816,8 +590,7 @@ class Engine:
             if inflight >= FLUSH_PAIRS:
                 dispatch()
                 flush("forced")
-            elif merger is None and pending and (
-                    not flusher or not flusher[0].is_alive()):
+            elif merger is None and flusher.ready():
                 flush("eager")
 
         def reached() -> bool:
@@ -826,10 +599,9 @@ class Engine:
         def take(blk):
             """The global index of the schedule's next block, or None when
             another host owns it or the journal holds it (its pairs count as
-            resumed; under a merger its stored scores are re-contributed at
-            the next flush, so peers that lost theirs converge too).  Every
-            block the schedule yields passes here once, in schedule order,
-            before any grouping."""
+            resumed; the flusher re-contributes its stored scores to a
+            merger).  Every block the schedule yields passes here once, in
+            schedule order, before any grouping."""
             nonlocal gidx
             idx = gidx
             gidx += 1
@@ -842,10 +614,7 @@ class Engine:
                     return None
             if journal is not None and idx in journal.done:
                 stats.pairs_resumed += blk.n_valid
-                if merger is not None and store is not None:
-                    v = blk.valid
-                    oi, oj = blk.orig_i[v], blk.orig_j[v]
-                    resumed.append((oi, oj, store.read_pairs(oi, oj)))
+                flusher.resume(blk)
                 if bar:
                     bar.add(blk.n_valid)
                 return None
@@ -891,77 +660,97 @@ class Engine:
                 pace(send)
             send()
 
-        for a, b in sched.combos():
-            if reached():
-                break
-            npairs = sched.combo_pair_count(a, b)
-            if npairs == 0:
-                continue
-            Lk = sched.buckets[a].edge
-            Lc = sched.buckets[b].edge
-            if not tiles:
-                # linear-v1: superblocks of consecutive pair ids.
-                rows = sched.buckets[a].count
-                if rows > (1 << 24):
-                    raise RuntimeError(
-                        f"bucket of {rows} rows exceeds the f32 pair-id "
-                        "inversion range; build the schedule with "
-                        "Schedule.build (which splits oversized buckets)"
+        t0 = time.perf_counter()
+        with trace.span(rec, "engine.pack") as sp:
+            hit = self._bucket_cache is not None and self._bucket_cache[0] is ss
+            if hit:
+                buckets = self._bucket_cache[1]
+            else:
+                buckets = self._bucket_arrays(ss, sched, tiles)
+                self._bucket_cache = (ss, buckets)
+            if sp:
+                sp.attrs = {"buckets": 0 if hit else len(sched.buckets),
+                            "h2d_bytes": 0 if hit or not self._cuda else sum(
+                                t.nbytes for lane in buckets
+                                for codes, outer in lane
+                                for t in (*codes, *(outer or ())))}
+        with trace.span(rec, "engine.dispatch") as sp:
+            self._lane_launches = [0] * len(self.lanes)
+            self._lane_cells = [0] * len(self.lanes)
+            # Block cells are counted only where something reads them:
+            # _pick over several entries, the striping over hosts, the
+            # launch counts.
+            self._cells = (_BlockCells(sched) if rec or nhosts > 1
+                           or len(self.lanes) > 1 else None)
+            self._rec = rec
+            flusher = Flusher(store, merger=merger, journal=journal,
+                              stats=stats, rec=rec, bar=bar,
+                              sync_interval=SYNC_INTERVAL)
+            flusher.parent = sp
+            inflight = 0  # pairs of width since the last flush
+            scheduled = 0  # pairs claimed so far (limit_pairs)
+            gidx = 0  # global index of the next block the schedule yields
+            loads = np.zeros(nhosts, np.int64)  # cells owned per host
+            for a, b in sched.combos():
+                if reached():
+                    break
+                npairs = sched.combo_pair_count(a, b)
+                if npairs == 0:
+                    continue
+                Lk = sched.buckets[a].edge
+                Lc = sched.buckets[b].edge
+                if not tiles:
+                    # linear-v1: superblocks of consecutive pair ids.
+                    rows = sched.buckets[a].count
+                    if rows > (1 << 24):
+                        raise RuntimeError(
+                            f"bucket of {rows} rows exceeds the f32 pair-id "
+                            "inversion range; build the schedule with "
+                            "Schedule.build (which splits oversized buckets)"
+                        )
+                    width, B = self._superblock_width(Lc, Lk, npairs)
+                    ctx = ([(bl[b][0], bl[a][0]) for bl in buckets],
+                           functools.partial(_pair_rows, npairs=npairs,
+                                             rows=rows, tri=a == b), Lc, Lk)
+                    chunk = max(1, FLUSH_PAIRS // width)
+                    stream(
+                        sched.blocks(a, b, width=width, tail_min=B or None),
+                        lambda g: self._dispatch_pairs(g, ctx, flusher),
+                        1 << (chunk.bit_length() - 1),
                     )
-                width, B = self._superblock_width(Lc, Lk, npairs)
-                ctx = ([(bl[b][0], bl[a][0]) for bl in buckets],
-                       functools.partial(_pair_rows, npairs=npairs, rows=rows,
-                                         tri=a == b), Lc, Lk)
-                chunk = max(1, FLUSH_PAIRS // width)
+                    continue
+                tctx = ([(bl[b][1][0], bl[a][1][1], bl[a][1][2])
+                         for bl in buckets], Lc, Lk)
+                tiles_ab = list(sched.tiles(a, b))
+                stream(tiles_ab,
+                       lambda g: self._dispatch_tiles(g, tctx, flusher),
+                       self._tile_group(Lc, Lk, len(tiles_ab)), whole=True)
+                if a != b or reached():
+                    continue
+                # Diagonal remainder: the per-window triangles excluded from
+                # the tile stream (Schedule.tiles), through the per-pair
+                # kernel.
+                count = sched.buckets[a].count
+                n_slots = -(-count // TILE_B) * TRI_W
+                ctx = ([(bl[a][0], bl[a][0]) for bl in buckets],
+                       functools.partial(_diag_rows, n_slots=n_slots,
+                                         rows=count), Lc, Lc)
                 stream(
-                    sched.blocks(a, b, width=width, tail_min=B or None),
-                    lambda g: self._dispatch_pairs(g, ctx, pending),
-                    1 << (chunk.bit_length() - 1),
+                    sched.diag_blocks(a, self._diag_width(Lc, n_slots),
+                                      tail_min=TILE_B),
+                    lambda g: self._dispatch_pairs(g, ctx, flusher),
                 )
-                continue
-            tctx = ([(bl[b][1][0], bl[a][1][1], bl[a][1][2]) for bl in buckets],
-                    Lc, Lk)
-            tiles_ab = list(sched.tiles(a, b))
-            stream(tiles_ab,
-                   lambda g: self._dispatch_tiles(g, tctx, pending),
-                   self._tile_group(Lc, Lk, len(tiles_ab)), whole=True)
-            if a != b or reached():
-                continue
-            # Diagonal remainder: the per-window triangles excluded from
-            # the tile stream (Schedule.tiles), through the per-pair kernel.
-            count = sched.buckets[a].count
-            n_slots = -(-count // TILE_B) * TRI_W
-            ctx = ([(bl[a][0], bl[a][0]) for bl in buckets],
-                   functools.partial(_diag_rows, n_slots=n_slots, rows=count),
-                   Lc, Lc)
-            stream(
-                sched.diag_blocks(a, self._diag_width(Lc, n_slots),
-                                  tail_min=TILE_B),
-                lambda g: self._dispatch_pairs(g, ctx, pending),
-            )
-        if rec:
-            rec.end(cur, launches=list(self._lane_launches))
-        if poller is not None:
-            poll_stop.set()
-            poller.join(timeout=2.0)
-        if rec:
-            cur = rec.begin("engine.final", rec.top)
-        flush("final")
-        join_flusher()
-        if journal is not None and commit_backlog:
-            # The run's last blocks are durable and journaled on return.
-            sync_commit()
-        if rec:
-            rec.end(cur)
+            if sp:
+                sp.attrs = {"launches": list(self._lane_launches)}
+        with trace.span(rec, "engine.final") as sp:
+            flusher.finish(sp)
         if bar:
             bar.end()
         stats.seconds = time.perf_counter() - t0
         stats.lane_launches = list(self._lane_launches)
         stats.lane_cells = (list(self._lane_cells) if len(self.lanes) > 1
                             else [stats.cells])
-        if rec:
-            rec.top.attrs = {"pairs": stats.pairs, "cells": stats.cells,
-                             "lanes": len(self.lanes),
-                             "schedule": "tiles-v2" if tiles else "linear-v1"}
-            print(trace.phase_line(rec, stats.seconds, keep), flush=True)
+        trace.finish(rec, stats.seconds, flusher.keep, pairs=stats.pairs,
+                     cells=stats.cells, lanes=len(self.lanes),
+                     schedule="tiles-v2" if tiles else "linear-v1")
         return stats

@@ -22,21 +22,22 @@ workers do.
 ``filler(store)`` gives the function that does this for ``store``, or None
 where it does not apply: a store other than a plain-layout OutputStore
 (the sorted-coordinate spill layout, a ShardStore), no native library
-(``SEQALIGN_TPU_NATIVE=0``, no compiler) or a host of two cores or fewer,
-where OutputStore.fill_pairs does not take the native scatter either.
+(``SEQALIGN_TPU_NATIVE=0``, no compiler) or a process that may run on two
+cores or fewer (its affinity mask, as the team is sized), where
+OutputStore.fill_pairs does not take the native scatter either.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from pathlib import Path
 
 import numpy as np
 
-from .. import system
+from .. import buildcache, system
 from ..scheduler import TILE_B, TILE_S, Block, DiagBlock, TileBlock
-from . import native
 from .output import OutputStore
 
 assert TILE_S == TILE_B == 128  # direct_fill.c's TILE
@@ -48,24 +49,13 @@ _WIDE = {np.dtype(np.int16): 0, np.dtype(np.int32): 1}
 #: The plain layout's own scatter, whose writes the direct path makes.
 _FILL_PAIRS = OutputStore.fill_pairs
 
-_lib = None
-_lib_tried = False
 
-
+@functools.cache
 def _library() -> ctypes.CDLL | None:
-    """csrc/direct_fill.c, built into the kernel build cache on first use
-    (io/native.py's ``_build_lib``); None under SEQALIGN_TPU_NATIVE=0 or
-    when it cannot be built."""
-    global _lib, _lib_tried
-    if _lib_tried:
-        return _lib
-    _lib_tried = True
-    if os.environ.get("SEQALIGN_TPU_NATIVE", "1") == "0":
-        return None
-    try:
-        lib = native._build_lib(_SRC, ("-march=native", "-pthread"))
-    except Exception:
-        lib = None
+    """csrc/direct_fill.c, built into the port's build cache on first use
+    (buildcache.host_library); None under SEQALIGN_TPU_NATIVE=0 or when it
+    cannot be built."""
+    lib = buildcache.host_library(_SRC, ("-march=native", "-pthread"))
     if lib is not None:
         vp = ctypes.c_void_p
         i32, i64 = ctypes.c_int32, ctypes.c_int64
@@ -78,8 +68,7 @@ def _library() -> ctypes.CDLL | None:
         lib.scatter_linear.restype = i64
         lib.scatter_linear.argtypes = [vp, i32, vp, vp, i64, i64, vp, vp,
                                        i64, i64, i64, vp, i64, i32, i32]
-    _lib = lib
-    return _lib
+    return lib
 
 
 def _cores() -> int:
@@ -111,7 +100,7 @@ def filler(store):
     if (not isinstance(store, OutputStore) or store.pos is not None
             or type(store).fill_pairs is not _FILL_PAIRS):
         return None
-    if (os.cpu_count() or 1) <= 2:
+    if _cores() <= 2:
         return None
     lib = _library()
     if lib is None:

@@ -1,97 +1,33 @@
-# Copy of sequencealigner_tpu/io/native.py: only imports and source paths differ (dedupe: ROADMAP A15).
+# Port of sequencealigner_tpu/io/native.py: the loaders build through buildcache.py.
 """ctypes loader for the native parser library (native/fastparse.c).
 
-The C library is compiled on demand into the user cache directory (this
-package ships as source; pybind11 is deliberately avoided — plain C ABI +
-ctypes keeps the toolchain requirement to just a C compiler).  Any failure —
-no compiler, unwritable cache — silently falls back to the pure-Python
-parsers, which are the semantic reference.  Disable with
+The C library is compiled on demand into the port's build cache
+(buildcache.py; this package ships as source; pybind11 is deliberately
+avoided — plain C ABI + ctypes keeps the toolchain requirement to just a C
+compiler).  Any failure — no compiler, no source — silently falls back to
+the pure-Python parsers, which are the semantic reference.  Disable with
 SEQALIGN_TPU_NATIVE=0.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
+import functools
 from pathlib import Path
 
 import numpy as np
 
+from .. import buildcache
 from .input import ParseError
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _SRC = _NATIVE_DIR / "fastparse.c"
-_lib = None
-_tried = False
 
 
-def _host_isa_tag() -> str:
-    """Identify the host ISA for -march=native cache keys: a cache directory
-    shared across heterogeneous machines (NFS home, reused container volumes)
-    must not serve a binary compiled for a newer CPU (SIGILL on older ones).
-    gcc's resolved -march=native target is the authoritative token."""
-    import platform
-
-    try:
-        out = subprocess.run(
-            ["gcc", "-march=native", "-E", "-v", "-", "-o", os.devnull],
-            input=b"", capture_output=True, timeout=10,
-        ).stderr.decode(errors="replace")
-        for line in out.splitlines():
-            if "-march=" in line and "native" not in line:
-                arch = [t for t in line.split() if t.startswith("-march=")]
-                if arch:
-                    return hashlib.sha256(
-                        (platform.machine() + arch[0]).encode()
-                    ).hexdigest()[:8]
-    except Exception:
-        pass
-    return platform.machine()
-
-
-def _build_lib(src: Path, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL | None:
-    if not src.exists():
-        return None
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    if "-march=native" in extra_flags:
-        tag += "-" + _host_isa_tag()
-    cache = Path(
-        os.environ.get(
-            "SEQALIGN_TPU_CACHE",
-            os.path.expanduser("~/.cache/sequencealigner-tpu"),
-        )
-    )
-    so = cache / f"lib{src.stem}-{tag}.so"
-    if not so.exists():
-        cache.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(".so.tmp")
-        subprocess.run(
-            ["gcc", "-O3", "-shared", "-fPIC", *extra_flags,
-             "-o", str(tmp), str(src)],
-            check=True,
-            capture_output=True,
-        )
-        tmp.replace(so)
-    return ctypes.CDLL(str(so))
-
-
-def _build() -> ctypes.CDLL | None:
-    return _build_lib(_SRC)
-
-
+@functools.cache
 def get() -> ctypes.CDLL | None:
-    global _lib, _tried
-    if _tried:
-        return _lib
-    _tried = True
-    if os.environ.get("SEQALIGN_TPU_NATIVE", "1") == "0":
-        return None
-    try:
-        lib = _build()
-        if lib is None:
-            return None
+    lib = buildcache.host_library(_SRC)
+    if lib is not None:
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i32p = ctypes.POINTER(ctypes.c_int32)
         i64p = ctypes.POINTER(ctypes.c_int64)
@@ -106,10 +42,7 @@ def get() -> ctypes.CDLL | None:
             ctypes.c_int32, ctypes.c_int32,
             u8p, i64p, ctypes.c_int64, ctypes.c_char_p,
         ]
-        _lib = lib
-    except Exception:
-        _lib = None
-    return _lib
+    return lib
 
 
 def _run(fn, data: bytes, lut: np.ndarray, gap_pen: int, max_seqs: int, *extra):
@@ -155,23 +88,13 @@ def dsv_fast(
 
 # ---- hostops: store scatter / row reconstruction / bucket packing ----------
 
-_hostops = None
-_hostops_tried = False
 
-
+@functools.cache
 def hostops() -> ctypes.CDLL | None:
     """Loader for native/hostops.c (OpenMP host runtime ops)."""
-    global _hostops, _hostops_tried
-    if _hostops_tried:
-        return _hostops
-    _hostops_tried = True
-    if os.environ.get("SEQALIGN_TPU_NATIVE", "1") == "0":
-        return None
-    try:
-        lib = _build_lib(_NATIVE_DIR / "hostops.c",
-                         ("-march=native", "-fopenmp"))
-        if lib is None:
-            return None
+    lib = buildcache.host_library(_NATIVE_DIR / "hostops.c",
+                                  ("-march=native", "-fopenmp"))
+    if lib is not None:
         i8p = ctypes.POINTER(ctypes.c_int8)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i32p = ctypes.POINTER(ctypes.c_int32)
@@ -189,10 +112,7 @@ def hostops() -> ctypes.CDLL | None:
         lib.materialize_block.restype = i64
         lib.materialize_block.argtypes = [i64p, i32p, i64, i64, i64,
                                           ctypes.c_int32, i64, i64, i64p, i64p]
-        _hostops = lib
-    except Exception:
-        _hostops = None
-    return _hostops
+    return lib
 
 
 def _ptr(a, ctype):

@@ -46,38 +46,28 @@ launch); there is no setting.
 
 The kernels are compiled on the first CUDA call, from the package's own
 ``csrc/*.cu`` only, with nvcc into a shared library with a plain C interface
-(no PyTorch headers: the build takes seconds).  The library lands in
-``cache_dir()`` (``SEQALIGN_TPU_CACHE``, by default
-``~/.cache/sequencealigner-tpu``, never inside the package, which may be
-read-only), keyed by a hash of the sources so that an edit rebuilds.
+(no PyTorch headers: the build takes seconds), in the port's build cache
+(buildcache.py: never inside the package, which may be read-only).
 """
 
 from __future__ import annotations
 
-import atexit
 import ctypes
-import hashlib
+import functools
 import os
 import shutil
-import socket
-import subprocess
-import tempfile
 import threading
 import time
 from pathlib import Path
 
 import torch
 
-from .. import ui
+from .. import buildcache
 from . import torch_dp
 from .geometry import LANE, S_TILE
 
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
-#: The build directory when SEQALIGN_TPU_CACHE is unset: the one the port's
-#: host libraries use (io/native.py), so every compiled file of the port
-#: lives in one place.
-DEFAULT_CACHE = "~/.cache/sequencealigner-tpu"
 ARCH = "arch=compute_90a,code=sm_90a"
 #: Rows per register band in the kernels (csrc/align_dp.cu KB): pairs with
 #: more rows than this hand rows between bands through the scratch stream.
@@ -105,12 +95,9 @@ MAX_LANES = 32
 
 ALGO_ID = {"nw": 0, "ga": 1, "sw": 2}
 
-_lib = None
 _lock = threading.Lock()
 #: (kernel, device index, algo[, split]) -> resident blocks per SM.
 _resident: dict = {}
-#: This process's build directory when there is no persistent cache.
-_private: Path | None = None
 #: Seconds the last build took (0.0 when the library was already in the
 #: cache) and nvcc's register/spill report for it.
 build_seconds = 0.0
@@ -125,104 +112,50 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _private_dir() -> Path:
-    """A temporary directory of this process, removed at its exit."""
-    global _private
-    if _private is None:
-        _private = Path(tempfile.mkdtemp(prefix="seqalign-kernels-"))
-        atexit.register(shutil.rmtree, _private, True)
-    return _private
+def nvcc_command(srcs) -> list:
+    """nvcc's command line, but for its output, that builds ``srcs`` into
+    a shared library for ``ARCH`` and reports registers (-Xptxas -v)."""
+    return [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", *map(str, srcs)]
 
 
-def cache_dir() -> Path:
-    """The directory compiled kernels go to, resolved at each build (not at
-    import) from SEQALIGN_TPU_CACHE, as the JAX package resolves its
-    compilation cache: unset, ``DEFAULT_CACHE``; a path, that path; "0" or
-    empty, no persistent cache (a private directory removed at exit).  A
-    directory that cannot be created or written is not an error: one
-    warning, then the private directory.  Either way the same sources are
-    built by the same nvcc."""
-    val = os.environ.get("SEQALIGN_TPU_CACHE")
-    if val is None:
-        val = os.path.expanduser(DEFAULT_CACHE)
-    if val in ("", "0"):
-        return _private_dir()
-    path = Path(val)
-    try:
-        path.mkdir(parents=True, exist_ok=True)
-        if not os.access(path, os.W_OK | os.X_OK):
-            raise PermissionError("not writable")
-    except OSError as e:
-        ui.pwarn("Kernel cache %s cannot be used (%s): building into a "
-                 "private directory", path, e)
-        return _private_dir()
-    return path
-
-
-def nvcc_build(so: Path, srcs) -> str:
-    """nvcc ``srcs`` into the shared library ``so`` for ``ARCH``; returns
-    nvcc's -Xptxas -v report.  The output goes to a name of this host and
-    process first and is renamed into place, so processes that share a
-    cache (several hosts over one home directory) never see a partial
-    library."""
-    tmp = so.with_name(f"{so.name}.{socket.gethostname()}.{os.getpid()}.tmp")
-    try:
-        r = subprocess.run(
-            [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-             *map(str, srcs)],
-            capture_output=True, text=True,
-        )
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{r.stderr}")
-        tmp.replace(so)
-    finally:
-        tmp.unlink(missing_ok=True)
-    return r.stderr
-
-
+@functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash, into ``cache_dir()``) and load the
+    """Build (once per source hash, into the build cache) and load the
     kernel library."""
-    global _lib, build_seconds, build_log
-    with _lock:
-        if _lib is not None:
-            return _lib
-        srcs = sorted(SRC_DIR.glob("*.cu"))
-        h = hashlib.sha256(ARCH.encode())
-        for s in srcs:
-            h.update(s.read_bytes())
-        so = cache_dir() / f"libalign_dp-{h.hexdigest()[:16]}.so"
-        if so.exists():
-            build_seconds = 0.0
-        else:
-            t0 = time.perf_counter()
-            build_log = nvcc_build(so, srcs)
-            build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.align_dp_tiles.argtypes = [
-            p, i, p, i, p, i, p, p, p, i, p, p, i, p, i, p,
-        ]
-        lib.align_dp_tiles.restype = i
-        lib.align_dp_tiles_resident.argtypes = [i, p]
-        lib.align_dp_tiles_resident.restype = i
-        lib.align_dp_pairs.argtypes = [
-            p, i, p, i, p, p, p, p, i, p, p, i, p, p, i, i, p, i, p,
-        ]
-        lib.align_dp_pairs.restype = i
-        lib.align_dp_pairs_resident.argtypes = [i, i, p]
-        lib.align_dp_pairs_resident.restype = i
-        lib.align_dp_grid.argtypes = [
-            p, i, i, i, i, p, p, p, i, p, p, i, i, i, p, i, p,
-        ]
-        lib.align_dp_grid.restype = i
-        lib.align_dp_grid_resident.argtypes = [i, p]
-        lib.align_dp_grid_resident.restype = i
-        lib.align_dp_error_string.argtypes = [i]
-        lib.align_dp_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+    global build_seconds, build_log
+    srcs = sorted(SRC_DIR.glob("*.cu"))
+    so = buildcache.library_path("align_dp", ARCH.encode(),
+                                 *(s.read_bytes() for s in srcs))
+    t0 = time.perf_counter()
+    log = buildcache.build(so, nvcc_command(srcs))
+    if log is None:
+        build_seconds = 0.0
+    else:
+        build_seconds, build_log = time.perf_counter() - t0, log
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.align_dp_tiles.argtypes = [
+        p, i, p, i, p, i, p, p, p, i, p, p, i, p, i, p,
+    ]
+    lib.align_dp_tiles.restype = i
+    lib.align_dp_tiles_resident.argtypes = [i, p]
+    lib.align_dp_tiles_resident.restype = i
+    lib.align_dp_pairs.argtypes = [
+        p, i, p, i, p, p, p, p, i, p, p, i, p, p, i, i, p, i, p,
+    ]
+    lib.align_dp_pairs.restype = i
+    lib.align_dp_pairs_resident.argtypes = [i, i, p]
+    lib.align_dp_pairs_resident.restype = i
+    lib.align_dp_grid.argtypes = [
+        p, i, i, i, i, p, p, p, i, p, p, i, i, i, p, i, p,
+    ]
+    lib.align_dp_grid.restype = i
+    lib.align_dp_grid_resident.argtypes = [i, p]
+    lib.align_dp_grid_resident.restype = i
+    lib.align_dp_error_string.argtypes = [i]
+    lib.align_dp_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _check(name: str, t: torch.Tensor, dtype, dev, ndim: int) -> None:

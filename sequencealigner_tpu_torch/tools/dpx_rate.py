@@ -3,7 +3,7 @@
     python -m sequencealigner_tpu_torch.tools.dpx_rate [--iters 20000]
         [--repeats 3]
 
-Builds tools/dpx_rate.cu with nvcc (into ``cuda_dp.cache_dir()``) and runs
+Builds tools/dpx_rate.cu with nvcc (into the port's build cache) and runs
 each of its kernels at full occupancy: one instruction kind alone (int32
 add, ``__viaddmax_s32``, ``__vimax3_s32``) and one NW / GA / SW cell's
 arithmetic, with independent chains per thread so that throughput, not
@@ -22,7 +22,6 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
-import hashlib
 import re
 import shutil
 import subprocess
@@ -31,6 +30,7 @@ from pathlib import Path
 
 import torch
 
+from .. import buildcache
 from ..ops import cuda_dp
 
 SRC = Path(__file__).resolve().with_name("dpx_rate.cu")
@@ -51,10 +51,9 @@ OPCODES = ("IADD3", "IMAD", "VIADDMNMX", "VIMNMX3", "VIMNMX", "IMNMX", "LOP3",
 
 def build() -> ctypes.CDLL:
     """nvcc the microbenchmark once per source hash; returns the library."""
-    h = hashlib.sha256(cuda_dp.ARCH.encode() + SRC.read_bytes())
-    so = cuda_dp.cache_dir() / f"libdpx_rate-{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        cuda_dp.nvcc_build(so, [SRC])
+    so = buildcache.library_path("dpx_rate", cuda_dp.ARCH.encode(),
+                                 SRC.read_bytes())
+    buildcache.build(so, cuda_dp.nvcc_command([SRC]))
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dpx_rate_run.argtypes = [i, i, i, p, p, p]

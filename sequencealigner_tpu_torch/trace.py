@@ -7,10 +7,10 @@ that called ``align_all``) or ``flusher``, with its own id, the id of the
 span that caused it, the id of its run and a few counts as attributes.  A
 run's spans are kept in memory while it goes; a finished run joins a
 bounded list of the last ``KEEP`` runs, which ``runs()`` returns.  With
-recording off the engine checks one flag at each span site and records
-nothing.
+no run, ``span`` records nothing and the engine computes no attribute.
 
-The spans of a run (engine.py), with their thread and attributes:
+The spans of a run (engine.py and flusher.py), with their thread and
+attributes:
 
 - ``engine.align_all`` (main): the whole call; ``pairs``, ``cells``,
   ``lanes``, ``schedule`` (``tiles-v2`` or ``linear-v1``).
@@ -60,6 +60,7 @@ profiler's trace by the offset between the two starts of that one span.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import threading
 import time
@@ -122,10 +123,8 @@ class Run:
         return span
 
     @staticmethod
-    def end(span: Span, **attrs) -> None:
+    def end(span: Span) -> None:
         span.t1 = time.perf_counter()
-        if attrs:
-            span.attrs = attrs
 
     def count(self, cause: str) -> None:
         self.causes[cause] = self.causes.get(cause, 0) + 1
@@ -169,6 +168,33 @@ class Run:
         return span.seconds - sum(
             s.seconds for s in self.spans
             if s.parent == span.id and s.tid == span.tid)
+
+
+@contextlib.contextmanager
+def _timed(run: Run, name: str, parent: Span, thread: str | None):
+    span = run.begin(name, parent, thread)
+    yield span
+    run.end(span)
+
+
+def span(run: Run | None, name: str, parent: Span | None = None,
+         thread: str | None = None):
+    """A context that records a span of ``name`` (under ``parent``, by
+    default the run's top span; ``thread`` as in ``Run.begin``) around its
+    body in ``run`` and gives it, or with no run records nothing and gives
+    None."""
+    if run is None:
+        return contextlib.nullcontext()
+    return _timed(run, name, run.top if parent is None else parent, thread)
+
+
+def finish(run: Run | None, wall: float, materialize: bool,
+           **attrs) -> None:
+    """``run``'s top span's attributes, and its ``[phases]`` line."""
+    if run is None:
+        return
+    run.top.attrs = attrs
+    print(phase_line(run, wall, materialize), flush=True)
 
 
 def runs() -> list:

@@ -13,6 +13,7 @@ diagonal-remainder cells without pair arrays."""
 
 import contextlib
 import dataclasses
+import functools
 import io
 import types
 from unittest import mock
@@ -355,10 +356,10 @@ def test_triplet_path_where_direct_does_not_apply(monkeypatch, case):
         store = ShardStore(N, 0, N)
     else:
         monkeypatch.setenv("SEQALIGN_TPU_NATIVE", "0")
-        monkeypatch.setattr(native, "_hostops", None)
-        monkeypatch.setattr(native, "_hostops_tried", False)
-        monkeypatch.setattr(direct_fill, "_lib", None)
-        monkeypatch.setattr(direct_fill, "_lib_tried", False)
+        # Loaders that have not loaded yet in this process.
+        for mod, name in ((native, "hostops"), (direct_fill, "_library")):
+            monkeypatch.setattr(mod, name, functools.cache(
+                getattr(mod, name).__wrapped__))
     assert direct_fill.filler(store) is None or case == "merger"
     stats, run = _align(monkeypatch, store, **kw)
     assert run.top.attrs["schedule"] == ("linear-v1" if "outer" in kw

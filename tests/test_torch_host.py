@@ -192,11 +192,12 @@ def test_port_imports_neither_jax_nor_the_reference():
 def test_copies_differ_from_reference_only_in_imports():
     """Each copied host module is its reference file plus a one-line note,
     apart from import lines, the package anchor of the matrix data, and
-    citations of the original C sources written as repository paths."""
+    citations of the original C sources written as repository paths;
+    io/native.py is its reference file but for the two loaders."""
     ref = ROOT / "sequencealigner_tpu"
     copies = [p for p in PORT.rglob("*.py")
               if p.read_text().startswith("# Copy of sequencealigner_tpu/")]
-    assert len(copies) == 14
+    assert len(copies) == 13
     for p in copies:
         mine = p.read_text().splitlines()[1:]
         theirs = (ref / p.relative_to(PORT)).read_text().replace(
@@ -216,3 +217,16 @@ def test_copies_differ_from_reference_only_in_imports():
         return [ast.dump(node) for node in body[1:]]
 
     assert code(PORT / "benchmarks.py") == code(ref / "benchmarks.py")
+    # io/native.py was the fourteenth copy: its two loaders now build
+    # through buildcache.py; every other function is still the reference's.
+
+    def functions(path):
+        return {node.name: ast.dump(node)
+                for node in ast.parse(path.read_text()).body
+                if isinstance(node, ast.FunctionDef)}
+
+    mine, theirs = (functions(p / "io" / "native.py") for p in (PORT, ref))
+    builders = {"_host_isa_tag", "_build_lib", "_build"}
+    assert set(theirs) - set(mine) == builders and set(mine) <= set(theirs)
+    for name in set(mine) - {"get", "hostops"}:
+        assert mine[name] == theirs[name], name

@@ -14,6 +14,7 @@ from sequencealigner_tpu.io.output import OutputStore as RefOutputStore
 from sequencealigner_tpu.ops import pallas_dp
 from sequencealigner_tpu.scheduler import Schedule as RefSchedule
 from sequencealigner_tpu_torch import engine as port_engine
+from sequencealigner_tpu_torch import flusher
 from sequencealigner_tpu_torch.io.input import SequenceSet
 from sequencealigner_tpu_torch.io.output import OutputStore
 from sequencealigner_tpu_torch.ops import cuda_dp, geometry
@@ -147,7 +148,7 @@ def test_flush_bound_never_cuts_a_tile_launch(monkeypatch):
         sent.append(len(blks))
         return dispatch(self, blks, ctx, pending)
 
-    monkeypatch.setattr(port_engine.threading, "Thread", _BusyFlusher)
+    monkeypatch.setattr(flusher.threading, "Thread", _BusyFlusher)
     monkeypatch.setattr(port_engine, "FLUSH_PAIRS",
                         3 * geometry.S_TILE * geometry.LANE)
     monkeypatch.setattr(port_engine.Engine, "_tile_group",
@@ -178,10 +179,10 @@ def test_linear_v1_flushes_only_at_the_bound(monkeypatch):
 
     class Recording(_BusyFlusher):
         def __init__(self, target, args=(), daemon=None):
-            batches.append(sum(b.width for e in args[0] for _, b in e[2]))
+            batches.append(sum(b.width for e in args[0] for _, b in e.blocks))
             super().__init__(target, args, daemon)
 
-    monkeypatch.setattr(port_engine.threading, "Thread", Recording)
+    monkeypatch.setattr(flusher.threading, "Thread", Recording)
     monkeypatch.setattr(port_engine, "FLUSH_PAIRS", bound)
     eng = port_engine.Engine("ga", wide, (0, -10, -1), device="cpu")
     assert eng.schedule_token(ss.lengths).startswith("linear-v1")
