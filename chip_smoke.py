@@ -12,7 +12,8 @@ lines; any failure raises, so the exit code is non-zero and no result line
 is printed.
 
   (a) the card (nvidia-smi name and power limit), torch, the kernel build;
-  (b) each kernel against its plain PyTorch version on the card, NW/GA/SW,
+  (b) each kernel against its plain PyTorch version on the card (the tile
+      kernel in both forms, int32 and 16-bit, each with its own ms), NW/GA/SW,
       BLOSUM62, at the main path's shapes (single-band edge 64, multi-band
       edge 160, a cross-bucket 256 x 96 combo, diagonal-remainder blocks
       with tail slots, and a 512 x 320 combo of 700 x 400 rows in length
@@ -124,6 +125,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import importlib.util
 import io
 import json
@@ -247,7 +249,7 @@ def phase_b(rng, dev, M):
               ("cross 256x96", 256, 96, 300, 200),
               ("diag-tail 128", 128, 128, 300, 200),
               ("multi-tile 512x320", 512, 320, 700, 400)]
-    err = {"align_tiles": 0, "align_pairs": 0}
+    err = {"align_tiles": 0, "align_tiles16": 0, "align_pairs": 0}
     times = {}
     lanes_seen = set()
     for label, Lc, Lk, nc, nk in shapes:
@@ -279,12 +281,16 @@ def phase_b(rng, dev, M):
         mc, mk, lc, lk = (torch.from_numpy(a).to(dev) for a in mats)
         pargs = (mc, mk, rc, rk, lc, lk)
         cells = {"align_tiles": tile_call_cells(desc, cw, kl),
+                 "align_tiles16": tile_call_cells(desc, cw, kl),
                  "align_pairs": int((lc[rc.long()].long()
                                      * lk[rk.long()].long()).sum())}
         for algo, gaps in ALGO_GAPS:
             sub, g = engine.from_reference_inputs(M.matrix, gaps, dev)
             for name, kern, plain, args in (
                 ("align_tiles", cuda_dp.align_tiles,
+                 torch_dp.align_tiles_plain, targs),
+                ("align_tiles16", functools.partial(cuda_dp.align_tiles,
+                                                    dp16=True),
                  torch_dp.align_tiles_plain, targs),
                 ("align_pairs", cuda_dp.align_pairs,
                  torch_dp.align_pairs_plain, pargs),
@@ -295,8 +301,9 @@ def phase_b(rng, dev, M):
                            cells[name], err, times, G)
                 if G:
                     lanes_seen.add(G)
-            log(f"(b) {label:18s} {algo}: both kernels == plain (exact), "
-                f"{len(desc)} tiles in one align_tiles launch")
+            log(f"(b) {label:18s} {algo}: both kernels, and align_tiles' "
+                f"16-bit form, == plain (exact), {len(desc)} tiles in one "
+                "align_tiles launch")
     lone = [("G=1 262144x64", 262144, 64), ("4096x160", 4096, 160),
             ("2048x512", 2048, 512),
             ("64 up to 3000", 64, None), ("512 up to 3000", 512, None)]

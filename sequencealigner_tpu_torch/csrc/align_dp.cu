@@ -84,6 +84,31 @@
 // per stage says when it is full, another when every consumer has released
 // it.  It copies no column past the block's longest l1 and no band past
 // its longest l2, and its grid is persistent too (align_dp_grid_resident).
+// The tile kernel has a second, 16-bit form (tiles_kernel16) for the combos
+// whose every value provably fits int16 (Engine._dp16_ok: (Lc + Lk + KB +
+// 1) x max(max|sub|, |gap|, |open|, |extend|) <= 32767; the margin covers
+// the last band's pad rows and SCORE_MIN's stand-in, -32768 + |extend|).
+// What bounds it is the same pipe, but Hopper's DPX instructions have
+// s16x2 forms (__viaddmax_s16x2, __vimax3_s16x2[_relu], and __vadd2 for
+// the adds, VIADD.16) that issue at the s32 forms' rate, about 62 a clock
+// per SM, and do two cells' work: the GA cell mix runs 26.1 cells a clock
+// per SM against the int32 form's 15.1 (tools/dpx_rate.py).  Its design:
+//   - pairing: a thread scores k-lanes 2u and 2u+1 of the tile, one in each
+//     halfword of every band register; a block's two halves (two warps
+//     each) take two c-rows of the tile, so an item is (tile, c-row pair)
+//     and the column letter stays warp-uniform.  Bucket rows are in length
+//     order, so the two lanes' lengths nearly agree; the thread sweeps to
+//     the longer, and each lane's score comes from its own row l2 (NW/GA:
+//     captured from the band that holds it) or, for SW, its own rows only
+//     (the bands past the shorter length mask the other halfword off the
+//     running best);
+//   - lookup: a table of row-letter pairs, 25 x 625 packed int16x2 (62.5 KB
+//     of dynamic shared memory; three blocks an SM hold 187.5 KB), so one
+//     shared-memory load gives both lanes' substitution scores of a row:
+//     half a load a cell.  PAD entries are 0, so pad rows stay within the
+//     predicate's bound and never reach a score;
+//   - the crossing stream carries packed H and Y, half the bytes a cell;
+//   - output: the int32 form's layout and dtype, each halfword widened.
 // All kernels launch on the caller's stream, allocate nothing and do not
 // synchronise.
 
@@ -880,6 +905,287 @@ grid_kernel(const int8_t* __restrict__ sk, int S, int W, int Kpad, int B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tile kernel's 16-bit form (tiles_kernel16): two k-lanes a thread, one
+// in each halfword of every band register, so that each DPX instruction
+// does two cells' work (the s16x2 forms of the int32 sweep's instructions,
+// in the same order).  Halfwords never carry into each other: every add
+// and add-max wraps within its halfword, and the engine runs this form only
+// where no value it forms leaves int16 (Engine._dp16_ok), so none wraps.
+
+// v in both halfwords.
+__device__ __forceinline__ unsigned splat2(int v) {
+  return (unsigned)(v & 0xffff) * 0x10001u;
+}
+
+// From the block's table of row-letter pairs (tile mode, 16-bit form):
+// tab[c * ALPHA * ALPHA + ka * ALPHA + kb] holds sub[ka][c] in its low
+// halfword and sub[kb][c] in its high one, 0 where ka, kb or c is PAD (rows
+// past a lane's length never reach its score).  A band row's offset into a
+// table row, (ka * ALPHA + kb) * 4 bytes, takes a halfword, two to a
+// register; column(j) sets the table row of column j's letter; at(i) is
+// one shared-memory load for both lanes' cells of row i.
+struct PairScore {
+  const uint16_t* kpair;  // kmatT at this thread's two lanes
+  int kcols;
+  const int* cw;          // the block half's c-row
+  unsigned tab;           // shared-window address of the table
+  unsigned kw[KB / 2];
+  unsigned word = 0;
+  unsigned srow = 0;
+
+  __device__ __forceinline__ void band(int r0, int l2a, int l2b) {
+#pragma unroll
+    for (int w = 0; w < KB / 2; ++w) {
+      unsigned x = 0;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = r0 + 2 * w + j;
+        const unsigned codes =
+            r < max(l2a, l2b) ? __ldg(kpair + (size_t)r * (kcols / 2)) : 0;
+        const int ka = r < l2a ? (int)(codes & 0xff) : PAD;
+        const int kb = r < l2b ? (int)(codes >> 8) : PAD;
+        x |= (unsigned)((ka * ALPHA + kb) * (int)sizeof(unsigned)) << (16 * j);
+      }
+      kw[w] = x;
+    }
+  }
+  __device__ __forceinline__ void group(int g) {
+    word = (unsigned)__ldg(cw + 1 + g);
+  }
+  __device__ __forceinline__ void column(int j) {
+    srow = tab + ((word >> (8 * j)) & 0xFF) * ALPHA * ALPHA *
+                     (unsigned)sizeof(unsigned);
+    asm("" : "+r"(srow));
+  }
+  __device__ __forceinline__ unsigned at(int i) const {
+    unsigned v;
+    asm("ld.shared.b32 %0, [%1];"
+        : "=r"(v)
+        : "r"(srow + __byte_perm(kw[i >> 1], 0, i & 1 ? 0x4432 : 0x4410)));
+    return v;
+  }
+};
+
+// Rows of a band that count for each halfword, as a mask of its row: SW's
+// last bands hold rows past one lane's length, or both.
+__device__ __forceinline__ unsigned keep2(int i, int na, int nb) {
+  return (i < na ? 0xffffu : 0u) | (i < nb ? 0xffff0000u : 0u);
+}
+
+// dp_column in 16x2: the same recurrences, instruction for instruction, on
+// two lanes' cells.  With TAIL (SW), row i counts for lane a only below na
+// rows and for lane b below nb; SW takes the running best per two rows.
+template <int ALGO, bool TAIL>
+__device__ __forceinline__ void dp_column16(
+    unsigned (&H)[KB], unsigned (&X)[KB], unsigned d, unsigned hu,
+    unsigned& y, const PairScore& sc, unsigned gap, unsigned opn,
+    unsigned ext, unsigned& best, int na, int nb) {
+  unsigned prev = 0;
+#pragma unroll
+  for (int i = 0; i < KB; ++i) {
+    const unsigned left = H[i];
+    const unsigned dm = __vadd2(d, sc.at(i));
+    unsigned h;
+    if (ALGO == NW) {
+      h = __viaddmax_s16x2(left, gap, __viaddmax_s16x2(hu, gap, dm));
+    } else {
+      const unsigned x = __viaddmax_s16x2(left, opn, __vadd2(X[i], ext));
+      y = __viaddmax_s16x2(hu, opn, __vadd2(y, ext));
+      if (ALGO == SW) {
+        h = __vimax3_s16x2_relu(dm, x, y);
+        const unsigned c = TAIL ? h & keep2(i, na, nb) : h;  // h >= 0
+        if (i & 1)
+          best = __vimax3_s16x2(best, prev, c);
+        else
+          prev = c;
+      } else {
+        h = __vimax3_s16x2(dm, x, y);
+      }
+      X[i] = x;
+    }
+    d = left;
+    H[i] = h;
+    hu = h;
+  }
+}
+
+// band_group and sweep_band in 16x2 (see them): the streams hold packed
+// pairs, so a group of four columns is one int4 of H and one of Y.
+template <int ALGO, bool TAIL>
+__device__ __forceinline__ void sweep_band16(
+    int l1, int r0, int na, int nb, bool top, bool last, PairScore& sc,
+    int gap_s, int opn_s, int slope, unsigned gap, unsigned opn,
+    unsigned ext, unsigned sent, unsigned (&H)[KB], unsigned& best,
+    uint4* __restrict__ hs, uint4* __restrict__ ys) {
+  unsigned X[KB];
+#pragma unroll
+  for (int i = 0; i < KB; ++i) {
+    H[i] = splat2(border<ALGO>(r0 + i + 1, gap_s, opn_s, slope));
+    X[i] = sent;
+  }
+  unsigned diag_top = splat2(border<ALGO>(r0, gap_s, opn_s, slope));
+  uint4 hn = make_uint4(0, 0, 0, 0), yn = hn;
+  if (!top) {
+    hn = hs[0];
+    if (ALGO != NW) yn = ys[0];
+  }
+  for (int g = 0; 4 * g < l1; ++g) {
+    sc.group(g);
+    uint4 hv = hn, yv = yn;
+    if (!top && 4 * (g + 1) < l1) {
+      hn = hs[(g + 1) * LANES];
+      if (ALGO != NW) yn = ys[(g + 1) * LANES];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 4 * g + j + 1;
+      unsigned bottom = 0, y = sent;
+      if (c <= l1) {  // l1 is the block half's: uniform in a warp
+        const unsigned up_h =
+            top ? splat2(border<ALGO>(c, gap_s, opn_s, slope)) : hv.x;
+        if (!top) y = yv.x;
+        sc.column(j);
+        dp_column16<ALGO, TAIL>(H, X, diag_top, up_h, y, sc, gap, opn, ext,
+                                best, na, nb);
+        diag_top = up_h;
+        bottom = H[KB - 1];
+      }
+      hv = make_uint4(hv.y, hv.z, hv.w, bottom);
+      yv = make_uint4(yv.y, yv.z, yv.w, y);
+    }
+    if (!last) {
+      hs[g * LANES] = hv;
+      if (ALGO != NW) ys[g * LANES] = yv;
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned band_row16(const unsigned (&H)[KB],
+                                               int idx) {
+  unsigned r = 0;
+#pragma unroll
+  for (int i = 0; i < KB; ++i)
+    if (i == idx) r = H[i];
+  return r;
+}
+
+// Scores of two pairs that share their columns (l1) and differ in rows (l2a
+// in the low halfword, l2b in the high one), packed the same way: the
+// thread sweeps to the longer of the two; NW/GA take each lane's H at its
+// own row l2 and column l1 (from the band that holds that row), SW the best
+// over each lane's own rows.  A pair with a zero length scores 0.
+template <int ALGO>
+__device__ __forceinline__ unsigned dp_sweep16(int l1, int l2a, int l2b,
+                                               PairScore& sc, int gap_s,
+                                               int opn_s, int ext_s,
+                                               uint4* __restrict__ hs,
+                                               uint4* __restrict__ ys) {
+  const int l2 = max(l2a, l2b);
+  if (l1 <= 0 || l2 <= 0) return 0;
+  const int slope = ALGO == NW ? gap_s : max(opn_s, ext_s);
+  const unsigned gap = splat2(gap_s), opn = splat2(opn_s),
+                 ext = splat2(ext_s);
+  // SCORE_MIN's stand-in: one extend above -32768, so that the one
+  // extension it takes before a real value replaces it does not wrap.
+  const unsigned sent = splat2(-32768 + abs(ext_s));
+  unsigned best = 0, res = 0;
+  unsigned H[KB];
+  const int nbands = (l2 + KB - 1) / KB;
+  for (int band = 0; band < nbands; ++band) {
+    const int r0 = band * KB;
+    const bool last = band == nbands - 1;
+    const int na = l2a - r0, nb = l2b - r0;  // rows of this band that count
+    sc.band(r0, l2a, l2b);
+    if (ALGO == SW && min(na, nb) < KB)
+      sweep_band16<ALGO, true>(l1, r0, na, nb, band == 0, last, sc, gap_s,
+                               opn_s, slope, gap, opn, ext, sent, H, best,
+                               hs, ys);
+    else
+      sweep_band16<ALGO, false>(l1, r0, na, nb, band == 0, last, sc, gap_s,
+                                opn_s, slope, gap, opn, ext, sent, H, best,
+                                hs, ys);
+    if (ALGO != SW) {
+      if (na > 0 && na <= KB)
+        res = (res & 0xffff0000u) | (band_row16(H, na - 1) & 0xffffu);
+      if (nb > 0 && nb <= KB)
+        res = (res & 0xffffu) | (band_row16(H, nb - 1) & 0xffff0000u);
+    }
+  }
+  return ALGO == SW ? best : res;
+}
+
+// The table of row-letter pairs (PairScore) from sub (25 x 25, rows the
+// k letters), into dynamic shared memory.
+constexpr int PAIR_TAB = ALPHA * ALPHA * ALPHA;
+constexpr int TILES16_SMEM = PAIR_TAB * (int)sizeof(unsigned);
+__device__ __forceinline__ void load_pair_table(const int* __restrict__ sub,
+                                                unsigned* tab) {
+  for (int i = threadIdx.x; i < PAIR_TAB; i += blockDim.x) {
+    const int c = i / (ALPHA * ALPHA), ka = i / ALPHA % ALPHA,
+              kb = i % ALPHA;
+    const int a = ka == PAD || c == PAD ? 0 : __ldg(sub + ka * ALPHA + c);
+    const int b = kb == PAD || c == PAD ? 0 : __ldg(sub + kb * ALPHA + c);
+    tab[i] = (unsigned)(a & 0xffff) | (unsigned)b << 16;
+  }
+  __syncthreads();
+}
+
+// Tile mode, 16-bit form: item = (tile t, c-rows 2p and 2p+1); each half
+// of the block (64 threads, two warps) takes one of the two c-rows, and
+// its thread u the k-lanes 2u and 2u+1 of the tile.  Same persistent grid,
+// work counter and longest-first order as tiles_kernel; output, layout and
+// int32 dtype as tiles_kernel's.  Each thread keeps one crossing slot of
+// the block's scratch (two int32 streams of packed pairs).
+template <int ALGO>
+__global__ void __launch_bounds__(LANES, 3)
+tiles_kernel16(const int* __restrict__ desc, int T,
+               const int* __restrict__ cwords, int cw_stride,
+               const int8_t* __restrict__ kmatT, int kcols,
+               const int* __restrict__ klens, const int* __restrict__ sub,
+               const int* __restrict__ gaps, int* __restrict__ out,
+               int* __restrict__ scratch, int wmax, int* __restrict__ next) {
+  extern __shared__ unsigned tab[];
+  __shared__ int claimed[2];
+  load_pair_table(sub, tab);
+  const int gap = gaps[0], opn = gaps[1], ext = gaps[2];
+  const int half = threadIdx.x / (LANES / 2), u = threadIdx.x % (LANES / 2);
+  uint4* hs = reinterpret_cast<uint4*>(crossing(scratch, wmax));
+  uint4* ys = hs + (size_t)(wmax / 4) * LANES;
+  const int items = T * (S_TILE / 2);
+  for (int k = 0;; k ^= 1) {
+    if (threadIdx.x == 0) claimed[k] = atomicAdd(next, 1);
+    __syncthreads();
+    const int item = items - 1 - claimed[k];
+    if (item < 0) break;
+    const int t = item / (S_TILE / 2);
+    const int s = item % (S_TILE / 2) * 2 + half;
+    const int crow = desc[2 * t] + s;
+    const int kl = desc[2 * t + 1] * LANES + 2 * u;
+    const int* cw = cwords + (size_t)crow * cw_stride;
+    PairScore sc{reinterpret_cast<const uint16_t*>(kmatT + kl), kcols, cw,
+                 (unsigned)__cvta_generic_to_shared(tab), {}};
+    const unsigned v = dp_sweep16<ALGO>(__ldg(cw), klens[kl], klens[kl + 1],
+                                        sc, gap, opn, ext, hs, ys);
+    reinterpret_cast<int2*>(out + ((size_t)t * S_TILE + s) * LANES)[u] =
+        make_int2((int)(short)(v & 0xffff), (int)(short)(v >> 16));
+  }
+}
+
+// tiles_kernel16<algo> with its dynamic shared memory limit raised to the
+// pair table's (above the default 48 KB), or nullptr.
+const void* tiles16_function(int algo, int* err) {
+  const void* f = algo == NW   ? (const void*)tiles_kernel16<NW>
+                  : algo == GA ? (const void*)tiles_kernel16<GA>
+                  : algo == SW ? (const void*)tiles_kernel16<SW>
+                               : nullptr;
+  *err = (int)cudaErrorInvalidValue;
+  if (!f) return nullptr;
+  *err = (int)cudaFuncSetAttribute(
+      f, cudaFuncAttributeMaxDynamicSharedMemorySize, TILES16_SMEM);
+  return *err ? nullptr : f;
+}
+
 }  // namespace
 
 extern "C" {
@@ -928,6 +1234,32 @@ int align_dp_tiles_resident(int algo, int* blocks) {
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The 16-bit form of align_dp_tiles (same arguments and output); grid is
+// SMs x align_dp_tiles16_resident(algo) blocks, at most one per two
+// c-rows of the launch.
+int align_dp_tiles16(const int* desc, int T, const int* cwords,
+                     int cw_stride, const int8_t* kmatT, int kcols,
+                     const int* klens, const int* sub, const int* gaps,
+                     int algo, int* out, int* scratch, int wmax, int* next,
+                     int grid, void* stream) {
+  int err;
+  const void* f = tiles16_function(algo, &err);
+  if (!f) return err;
+  void* args[] = {&desc, &T, &cwords, &cw_stride, &kmatT, &kcols, &klens,
+                  &sub, &gaps, &out, &scratch, &wmax, &next};
+  return (int)cudaLaunchKernel(f, dim3(grid), dim3(LANES), args, TILES16_SMEM,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks per SM of tiles_kernel16<algo>.
+int align_dp_tiles16_resident(int algo, int* blocks) {
+  int err;
+  const void* f = tiles16_function(algo, &err);
+  if (!f) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, f, LANES, TILES16_SMEM);
 }
 
 // G = 1 launches the one-lane form, G = 2..32 (a power of two) the split

@@ -420,6 +420,25 @@ class Engine:
         step = max(127, self.max_sub, *(abs(int(g)) for g in self.gaps))
         return (Lc + Lk) * step < 32767
 
+    def _dp16_ok(self, Lc: int, Lk: int) -> bool:
+        """Whether the tile kernel's 16-bit form (cuda_dp.align_tiles'
+        ``dp16``) computes every value of an (Lc, Lk) combo without
+        leaving int16.  Each H, X and Y of DP row r and column c is the
+        score of an alignment path (or a candidate one step longer) of at
+        most r + c steps, each changing it by at most ``step`` =
+        max(max|sub|, |gap|, |open|, |extend|): a substitution, an open or
+        an extension, and GA's border open + (k-1) max(open, extend) is
+        such a path.  The sweep's rows reach at most Lk + KB - 1 (the
+        last band's pad rows, and the shorter lane's pad rows, whose
+        substitution is 0) and its columns Lc, so every value lies within
+        (Lc + Lk + KB - 1) * step of zero.  SCORE_MIN's stand-in is -32768
+        + |extend|: it takes one extension (to at least -32768) before a
+        real value replaces it, and must stay at or below every real
+        value, which holds when (Lc + Lk + KB + 1) * step <= 32768.  So
+        the margin is KB + 1 steps; the bound is taken one below."""
+        step = max(1, self.max_sub, *(abs(int(g)) for g in self.gaps))
+        return (Lc + Lk + cuda_dp.KB + 1) * step <= 32767
+
     def _pick(self, blks: list) -> int:
         """The entry that takes one launch group of (index, block): the one
         with the fewest cells sent so far, ties to the lowest index, so the
@@ -450,9 +469,10 @@ class Engine:
             host = flat
         flusher.add(host, event, part, lane)
 
-    @functools.cached_property
-    def _fill_tiles(self) -> int:
-        return cuda_dp.tiles_to_fill(self.devices[0], self.algo)
+    def _fill_tiles(self, dp16: bool) -> int:
+        """Tiles that fill the first entry's card in the tile kernel's
+        int32 or 16-bit form (cuda_dp.tiles_to_fill)."""
+        return cuda_dp.tiles_to_fill(self.devices[0], self.algo, dp16)
 
     def _tile_group(self, Lc: int, Lk: int, ntiles: int) -> int:
         """Tiles per tile-kernel launch for a combo of ``ntiles`` tiles.  On
@@ -466,7 +486,8 @@ class Engine:
             cap = FLUSH_PAIRS // (TILE_S * TILE_B)
             if len(self.lanes) > 1:
                 share = -(-ntiles // len(self.lanes))
-                cap = min(cap, max(share, self._fill_tiles))
+                fill = self._fill_tiles(self._dp16_ok(Lc, Lk))
+                cap = min(cap, max(share, fill))
             return cuda_dp.tiles_per_launch(ntiles, cap)
         return geometry.pick_T(Lc, Lk)
 
@@ -492,7 +513,8 @@ class Engine:
         with lane.on():
             out = cuda_dp.align_tiles(
                 self._put(desc, lane), cw, km, kl, lane.sub, lane.gaps,
-                algo=self.algo, on_launch=self._counter("align_tiles", blks),
+                algo=self.algo, dp16=self._dp16_ok(Lc, Lk),
+                on_launch=self._counter("align_tiles", blks),
             )
             if self._int16_ok(Lc, Lk):
                 out = out.to(torch.int16)

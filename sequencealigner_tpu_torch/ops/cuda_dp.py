@@ -11,7 +11,8 @@ by ``str(device)``), under the module's lock: the engine launches on
 several devices, and a caller may launch from several threads.
 ``align_tiles`` and ``align_pairs`` also take an ``on_launch`` callback, to
 which they give the lanes per pair and the waves of the layout they ran,
-computed on the host from the shapes and the card.  The wrappers
+computed on the host from the shapes and the card, and the bits of the
+form they ran.  The wrappers
 check devices, dtypes, shapes and contiguity; the row indices inside
 ``desc`` / ``rc`` / ``rk`` and the lengths are trusted (the engine derives
 them from the schedule), since reading them back would synchronise the
@@ -36,6 +37,15 @@ Grid mode: ``align_grid``'s blocks stage the int8 grid through a ring of
 form ``grid_form`` picks from B and the grid's base alignment (``bulk``: one
 bulk copy a column; ``async``: cp.async of 16, 8 or 4 bytes; ``bytes``:
 plain loads); ``grid_layout`` is the whole launch.
+
+The tile kernel's 16-bit form: ``align_tiles(..., dp16=True)`` runs
+``tiles_kernel16``, which scores two k-lanes a thread in the two halfwords
+of int16x2 DPX lanes (the same recurrences, two cells an instruction),
+where the caller has proven that no value of the combo leaves int16
+(``Engine._dp16_ok``).  Output, layout and dtype are the int32 form's.
+Its block takes two c-rows of a tile (S_TILE / 2 items a tile) and holds a
+62.5 KB table of row-letter pairs, so its resident count is its own
+(``tiles_resident(algo, dp16=True)``).
 
 Lanes per pair: ``align_pairs`` scores a pair with one lane (128 slots a
 block) or, where the launch has too few pairs to fill the card, with a
@@ -141,6 +151,10 @@ def load_library() -> ctypes.CDLL:
     lib.align_dp_tiles.restype = i
     lib.align_dp_tiles_resident.argtypes = [i, p]
     lib.align_dp_tiles_resident.restype = i
+    lib.align_dp_tiles16.argtypes = lib.align_dp_tiles.argtypes
+    lib.align_dp_tiles16.restype = i
+    lib.align_dp_tiles16_resident.argtypes = [i, p]
+    lib.align_dp_tiles16_resident.restype = i
     lib.align_dp_pairs.argtypes = [
         p, i, p, i, p, p, p, p, i, p, p, i, p, p, i, i, p, i, p,
     ]
@@ -206,13 +220,14 @@ def _occupancy(key, query, what: str) -> int:
     return _resident[key]
 
 
-def tiles_resident(algo: str) -> int:
-    """Resident blocks per SM of the tile kernel for ``algo`` (the CUDA
-    occupancy query for its registers and shared memory), on the current
-    device."""
+def tiles_resident(algo: str, dp16: bool = False) -> int:
+    """Resident blocks per SM of the tile kernel for ``algo``, in its int32
+    or its 16-bit form (the CUDA occupancy query for its registers and
+    shared memory), on the current device."""
     return _occupancy(
-        ("tiles", torch.cuda.current_device(), algo),
-        lambda lib, n: lib.align_dp_tiles_resident(ALGO_ID[algo], n),
+        ("tiles", torch.cuda.current_device(), algo, dp16),
+        lambda lib, n: (lib.align_dp_tiles16_resident if dp16
+                        else lib.align_dp_tiles_resident)(ALGO_ID[algo], n),
         "align_tiles occupancy query")
 
 
@@ -322,12 +337,19 @@ def pairs_waves(npairs: int, g: int, edge_c: int, edge_k: int, sms: int,
     return _pair_items(npairs, g) / (cap * (LANE // WARP))
 
 
+def tile_items(ntiles: int, dp16: bool = False) -> int:
+    """Block items of an align_tiles launch of ``ntiles`` tiles: a c-row of
+    a tile each, or two in the 16-bit form."""
+    return ntiles * S_TILE // (2 if dp16 else 1)
+
+
 def tiles_waves(ntiles: int, wmax: int, banded: bool, sms: int,
-                per_sm: int) -> float:
+                per_sm: int, dp16: bool = False) -> float:
     """Waves of an align_tiles launch of ``ntiles`` tiles: its block items
-    over the largest grid the card holds resident (``launch_layout``)."""
+    over the largest grid the card holds resident (``launch_layout``) of
+    the form it runs (``per_sm`` that form's resident blocks)."""
     cap = launch_layout(sms * per_sm, wmax, banded, sms, per_sm)[0]
-    return ntiles * S_TILE / cap
+    return tile_items(ntiles, dp16) / cap
 
 
 def tiles_per_launch(ntiles: int, cap: int) -> int:
@@ -349,11 +371,12 @@ def _count(kernel, dev) -> None:
         by_device[str(dev)] = by_device.get(str(dev), 0) + 1
 
 
-def tiles_to_fill(dev, algo: str) -> int:
-    """Tiles an align_tiles launch needs on ``dev`` so that every resident
-    block of its grid gets an item (a tile is S_TILE items)."""
+def tiles_to_fill(dev, algo: str, dp16: bool = False) -> int:
+    """Tiles an align_tiles launch of the int32 or 16-bit form needs on
+    ``dev`` so that every resident block of its grid gets an item."""
     with torch.cuda.device(dev):
-        return -(-_sms(dev) * tiles_resident(algo) // S_TILE)
+        return -(-_sms(dev) * tiles_resident(algo, dp16)
+                 // tile_items(1, dp16))
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -363,17 +386,20 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 
 def align_tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo: str,
-                on_launch=None):
+                dp16: bool = False, on_launch=None):
     """NW/GA/SW scores of T outer-product tiles -> (T, S_TILE, LANE) int32
-    (contract: torch_dp.align_tiles_plain).  ``on_launch``, where given, is
-    called after the launch with (1, ``tiles_waves``); on the CPU with
-    (1, 0.0), since the plain version has no grid."""
+    (contract: torch_dp.align_tiles_plain).  ``dp16``: run the 16-bit form,
+    which the caller may ask for only where no value of the launch's combo
+    leaves int16 (``Engine._dp16_ok``); on the CPU it changes nothing.
+    ``on_launch``, where given, is called after the launch with (1,
+    ``tiles_waves``, the form's bits: 16 or 32); on the CPU with (1, 0.0,
+    32), since the plain version has no grid and computes in int32."""
     if desc.device.type == "cpu":
         out = torch_dp.align_tiles_plain(
             desc, cwords, kmatT, klens, sub, gaps, algo=algo
         )
         if on_launch:
-            on_launch(1, 0.0)
+            on_launch(1, 0.0, 32)
         return out
     dev = desc.device
     if dev.type != "cuda":
@@ -394,14 +420,15 @@ def align_tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo: str,
         return out
     lib = load_library()
     wmax = (cwords.shape[1] - 1) * 4
+    launch = lib.align_dp_tiles16 if dp16 else lib.align_dp_tiles
     with torch.cuda.device(dev):
-        per_sm = tiles_resident(algo)
+        per_sm = tiles_resident(algo, dp16)
         grid, scratch, wmax = _grid_and_scratch(
-            T * S_TILE, wmax, kmatT.shape[0] > KB, dev, per_sm,
+            tile_items(T, dp16), wmax, kmatT.shape[0] > KB, dev, per_sm,
         )
         # The work counter, zeroed on the launch's stream.
         nxt = torch.zeros(1, dtype=torch.int32, device=dev)
-        err = lib.align_dp_tiles(
+        err = launch(
             desc.data_ptr(), T, cwords.data_ptr(), cwords.shape[1],
             kmatT.data_ptr(), kmatT.shape[1], klens.data_ptr(),
             sub.data_ptr(), gaps.data_ptr(), ALGO_ID[algo], out.data_ptr(),
@@ -412,7 +439,7 @@ def align_tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo: str,
     _count(align_tiles, dev)
     if on_launch:
         on_launch(1, tiles_waves(T, wmax, kmatT.shape[0] > KB, _sms(dev),
-                                 per_sm))
+                                 per_sm, dp16), 16 if dp16 else 32)
     return out
 
 

@@ -12,6 +12,12 @@
 //   NW, GA, SW: one DP cell's arithmetic per chain and step, as dp_column in
 //   csrc/align_dp.cu computes it (NW 3 operations, GA 6, SW 7), with the
 //   substitution score a register, so no load is timed.
+//   ADD2, ADDMAX2, MAX3_2: the 16x2 forms (__vadd2, __viaddmax_s16x2,
+//   __vimax3_s16x2), two halfword operations each.
+//   NW2, GA2, SW2: the same cells in the 16-bit tile form, two cells (one in
+//   each halfword) per chain and step; GA2S: GA's in a domain shifted by
+//   (r + c) * extend, where only the diagonal takes an add (a form the
+//   kernels do not use: what it would gain).
 // The operands depend on earlier steps and on runtime inputs, so no step
 // can be folded away; cuobjdump -sass of the library shows what ran.
 
@@ -21,7 +27,10 @@
 namespace {
 
 constexpr int CHAINS = 8;
-enum { IADD, ADDMAX, MAX3, NW, GA, SW };
+enum {
+  IADD, ADDMAX, MAX3, NW, GA, SW,
+  ADD2, ADDMAX2, MAX3_2, NW2, GA2, SW2, GA2S
+};
 
 template <int KIND>
 __global__ void rate_kernel(const int* __restrict__ in, int iters,
@@ -36,7 +45,11 @@ __global__ void rate_kernel(const int* __restrict__ in, int iters,
     z[k] = in[(threadIdx.x + 7 * k) & 63];
     b[k] = in[64 + k];
   }
-  const int gap = in[72], opn = in[73], ext = in[74];
+  const bool pairs = KIND >= ADD2;  // 16x2 kinds: both halfwords
+  auto wide = [pairs](int v) {
+    return pairs ? (int)((unsigned)(v & 0xffff) * 0x10001u) : v;
+  };
+  const int gap = wide(in[72]), opn = wide(in[73]), ext = wide(in[74]);
   int best = 0;
   __syncthreads();
   const long long t0 = clock64();
@@ -51,6 +64,35 @@ __global__ void rate_kernel(const int* __restrict__ in, int iters,
       } else if (KIND == MAX3) {
         a[k] = __vimax3_s32(a[k], x[k], n);
         x[k] = __vimax3_s32(x[k], y[k], a[k]);
+      } else if (KIND == ADD2) {
+        a[k] = __vadd2(a[k], n);
+      } else if (KIND == ADDMAX2) {
+        a[k] = __viaddmax_s16x2(a[k], b[k], n);
+      } else if (KIND == MAX3_2) {
+        a[k] = __vimax3_s16x2(a[k], x[k], n);
+        x[k] = __vimax3_s16x2(x[k], y[k], a[k]);
+      } else if (KIND == NW2) {
+        const int dm = __vadd2(x[k], b[k]);
+        x[k] = a[k];
+        a[k] = __viaddmax_s16x2(a[k], gap, __viaddmax_s16x2(n, gap, dm));
+      } else if (KIND == GA2 || KIND == SW2) {
+        const int dm = __vadd2(x[k], b[k]);
+        x[k] = a[k];
+        y[k] = __viaddmax_s16x2(a[k], opn, __vadd2(y[k], ext));
+        z[k] = __viaddmax_s16x2(n, opn, __vadd2(z[k], ext));
+        if (KIND == SW2) {
+          a[k] = __vimax3_s16x2_relu(dm, y[k], z[k]);
+          best = __vmaxs2(best, a[k]);
+        } else {
+          a[k] = __vimax3_s16x2(dm, y[k], z[k]);
+        }
+      } else if (KIND == GA2S) {
+        // GA in the (r + c) * ext shifted domain: no adds but the diagonal.
+        y[k] = __viaddmax_s16x2(a[k], opn, y[k]);
+        z[k] = __viaddmax_s16x2(n, opn, z[k]);
+        const int d = x[k];
+        x[k] = a[k];
+        a[k] = __viaddmax_s16x2(d, b[k], __vmaxs2(y[k], z[k]));
       } else if (KIND == NW) {
         // left = a, up = n, diagonal = x
         const int dm = x[k] + b[k];
@@ -163,6 +205,13 @@ int dpx_rate_run(int kind, int iters, int threads, double* cyc, int* per_sm,
     case NW: return run<NW>(iters, threads, cyc, per_sm, sms);
     case GA: return run<GA>(iters, threads, cyc, per_sm, sms);
     case SW: return run<SW>(iters, threads, cyc, per_sm, sms);
+    case ADD2: return run<ADD2>(iters, threads, cyc, per_sm, sms);
+    case ADDMAX2: return run<ADDMAX2>(iters, threads, cyc, per_sm, sms);
+    case MAX3_2: return run<MAX3_2>(iters, threads, cyc, per_sm, sms);
+    case NW2: return run<NW2>(iters, threads, cyc, per_sm, sms);
+    case GA2: return run<GA2>(iters, threads, cyc, per_sm, sms);
+    case SW2: return run<SW2>(iters, threads, cyc, per_sm, sms);
+    case GA2S: return run<GA2S>(iters, threads, cyc, per_sm, sms);
     default: return (int)cudaErrorInvalidValue;
   }
 }

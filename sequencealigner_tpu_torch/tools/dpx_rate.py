@@ -5,8 +5,8 @@
 
 Builds tools/dpx_rate.cu with nvcc (into the port's build cache) and runs
 each of its kernels at full occupancy: one instruction kind alone (int32
-add, ``__viaddmax_s32``, ``__vimax3_s32``) and one NW / GA / SW cell's
-arithmetic, with independent chains per thread so that throughput, not
+add, ``__viaddmax_s32``, ``__vimax3_s32`` and their 16x2 forms) and one
+NW / GA / SW cell's arithmetic (two cells a step in the 16x2 kinds), with independent chains per thread so that throughput, not
 latency, is timed.  Each block records its SM and that SM's clocks
 (clock64), and an SM's rate is its blocks' work over the clocks from its
 first block's start to its last block's end, so the rates are per SM
@@ -44,9 +44,16 @@ KINDS = [
     ("nw", "NW cell: 1 add, 2 viaddmax", 1, "cells"),
     ("ga", "GA cell: 3 add, 2 viaddmax, 1 vimax3", 1, "cells"),
     ("sw", "SW cell: GA's with vimax3_relu, 1 max", 1, "cells"),
+    ("add2", "__vadd2", 2, "ops"),
+    ("addmax2", "__viaddmax_s16x2", 2, "ops"),
+    ("max3_2", "__vimax3_s16x2", 4, "ops"),
+    ("nw2", "two NW cells in 16x2", 2, "cells"),
+    ("ga2", "two GA cells in 16x2", 2, "cells"),
+    ("sw2", "two SW cells in 16x2", 2, "cells"),
+    ("ga2s", "two GA cells in 16x2, shifted domain", 2, "cells"),
 ]
 OPCODES = ("IADD3", "IMAD", "VIADDMNMX", "VIMNMX3", "VIMNMX", "IMNMX", "LOP3",
-           "MOV", "PRMT", "LEA")
+           "MOV", "PRMT", "LEA", "VIADD", "VADD", "HADD2", "SHF", "SEL")
 
 
 def build() -> ctypes.CDLL:

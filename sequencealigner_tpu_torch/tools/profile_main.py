@@ -346,14 +346,17 @@ def registers(kernel: str) -> dict:
 
 
 def occupancy_lines() -> list:
-    """Registers and resident blocks per SM of the tile kernel and of both
-    forms of the per-pair kernel, per algo, on the current device."""
-    tiles, pairs = registers("tiles_kernel"), registers("pairs_kernel")
+    """Registers and resident blocks per SM of both forms of the tile
+    kernel (int32 and 16-bit) and of the per-pair kernel (one-lane and
+    split), per algo, on the current device."""
+    pairs = registers("pairs_kernel")
     algos = ("nw", "ga", "sw")
     return [
-        "tiles_kernel registers per thread " + ", ".join(
-            f"{a} {tiles.get(a)}" for a in algos) + "; resident blocks per "
-        "SM " + ", ".join(f"{a} {cuda_dp.tiles_resident(a)}" for a in algos),
+        f"{name} registers per thread " + ", ".join(
+            f"{a} {registers(name).get(a)}" for a in algos) + "; resident "
+        "blocks per SM " + ", ".join(
+            f"{a} {cuda_dp.tiles_resident(a, dp16)}" for a in algos)
+        for name, dp16 in (("tiles_kernel", False), ("tiles_kernel16", True))
     ] + [
         f"pairs_kernel {form} registers per thread " + ", ".join(
             f"{a} {pairs.get((a, split))}" for a in algos) + "; resident "

@@ -40,8 +40,9 @@ Beside the spans, a run counts its DP launches (``Run.dp_launches``, one
 which the engine counts from the blocks it holds, and the lanes per pair G
 and the waves of the layout the wrapper ran (``cuda_dp.pairs_waves`` and
 ``tiles_waves``: the launch's items over the card's resident grid; G 1 for
-tiles, and waves 0 on the CPU, which has no grid).  All of it is counted
-on the host, with no device work.
+tiles, and waves 0 on the CPU, which has no grid), and the bits of the
+form it ran (``bits``: 16 for ``align_tiles``' 16-bit form, else 32).  All
+of it is counted on the host, with no device work.
 
 A flush's parent is the main-thread span that started it (``dispatch`` or
 ``final``).  Its cause: ``forced`` (FLUSH_PAIRS pairs in flight),
@@ -73,7 +74,8 @@ TOP = "engine.align_all"
 
 #: One DP launch of a run (see the module's docstring).
 Launch = collections.namedtuple(
-    "Launch", ("kernel", "pairs", "cells", "lanes", "waves"))
+    "Launch", ("kernel", "pairs", "cells", "lanes", "waves", "bits"),
+    defaults=(32,))
 
 _runs: collections.deque = collections.deque(maxlen=KEEP)
 _span_ids = itertools.count(1)
@@ -130,9 +132,10 @@ class Run:
         self.causes[cause] = self.causes.get(cause, 0) + 1
 
     def launch(self, kernel: str, pairs: int, cells: int, lanes: int,
-               waves: float) -> None:
+               waves: float, bits: int = 32) -> None:
         """Counts one DP launch (``Launch``)."""
-        self.dp_launches.append(Launch(kernel, pairs, cells, lanes, waves))
+        self.dp_launches.append(
+            Launch(kernel, pairs, cells, lanes, waves, bits))
 
     def __enter__(self) -> Run:
         if torch.autograd.profiler._is_profiler_enabled:

@@ -26,8 +26,8 @@ PKG = Path(cuda_dp.__file__).resolve().parents[1]
 
 STUB = "\n".join(
     f"int align_dp_{name}(void) {{ return 0; }}"
-    for name in ("tiles", "tiles_resident", "pairs", "pairs_resident",
-                 "grid", "grid_resident")
+    for name in ("tiles", "tiles_resident", "tiles16", "tiles16_resident",
+                 "pairs", "pairs_resident", "grid", "grid_resident")
 ) + '\nconst char *align_dp_error_string(int e) { return "stub"; }\n'
 
 FAKE_NVCC = f"""#!{sys.executable}

@@ -193,7 +193,7 @@ def test_card_groups_split_a_combo_over_entries(monkeypatch):
     two = port_engine.Engine("ga", M.matrix, GAPS, device=["cpu"] * 2)
     for eng in (one, two):
         monkeypatch.setattr(eng, "_cuda", True)
-        eng._fill_tiles = 4
+        monkeypatch.setattr(eng, "_fill_tiles", lambda dp16: 4)
     for n in (1, 8, 45, 300, 1000):
         assert one._tile_group(512, 512, n) == cuda_dp.tiles_per_launch(n,
                                                                         cap)

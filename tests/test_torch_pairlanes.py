@@ -74,7 +74,7 @@ def _launches(monkeypatch, raw, outer: str):
         seen.append((rc.shape[0], mat_k.shape[1]))
         return torch.zeros(rc.shape[0], dtype=torch.int32)
 
-    def tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo,
+    def tiles(desc, cwords, kmatT, klens, sub, gaps, *, algo, dp16=False,
               on_launch=None):
         return torch.zeros((desc.shape[0], geometry.S_TILE, geometry.LANE),
                            dtype=torch.int32)

@@ -217,7 +217,7 @@ def test_launch_counts_hold_every_cell(monkeypatch, outer, full):
     assert len(launches) == sum(dispatch.attrs["launches"])
     assert {x.kernel for x in launches} == (
         {"align_tiles", "align_pairs"} if outer == "1" else {"align_pairs"})
-    assert {(x.lanes, x.waves) for x in launches} == {(1, 0.0)}
+    assert {(x.lanes, x.waves, x.bits) for x in launches} == {(1, 0.0, 32)}
 
 
 @pytest.mark.parametrize("outer", ["1", "0"], ids=["tiles-v2", "linear-v1"])
@@ -249,7 +249,19 @@ def test_trace_file_holds_the_launch_counts():
     assert trace.add_chrome_events(events, [run]) == 1
     assert events[-1]["args"]["dp_launches"] == [{
         "kernel": "align_pairs", "pairs": 32640,
-        "cells": 1_836_000_000_000, "lanes": 2, "waves": 1.9318}]
+        "cells": 1_836_000_000_000, "lanes": 2, "waves": 1.9318,
+        "bits": 32}]
+
+
+def test_launch_bits_default_to_32():
+    """A Launch records the bits of the form the wrapper ran; a record
+    made without them (a caller of the older five fields) reads 32."""
+    run = trace.Run()
+    run.launch("align_tiles", 4096, 6_000_000, 1, 12.5, 16)
+    run.launch("align_pairs", 2016, 1_000_000, 4, 0.25)
+    assert [x.bits for x in run.dp_launches] == [16, 32]
+    assert trace.Launch("align_tiles", 1, 1, 1, 0.0).bits == 32
+    assert trace.Launch._fields[-1] == "bits"
 
 
 def test_spans_on_the_profilers_clock(monkeypatch):
